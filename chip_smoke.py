@@ -15,6 +15,15 @@ Phases (each raises on failure; nothing carries on on the CPU):
                (_assemble_pair) and pose-tracked (optimize_pose, default
                K-cover configuration, max_steps=300), run twice; launch
                counters are zeroed just before each run and read just after.
+  5. subtile — the same pair tracked through the sub-tile path
+               (TrackingConfig(kcover=0), max_steps=300), run twice, with
+               its own zeroed and read launch counters.
+  6. track   — the entry point a user types, in process:
+               `cli track --dataset Synthetic` on 4 frames at 1200x680 with
+               exact kNN, once with the default --kcover 16, once with
+               --kcover 0, and the --kcover 16 run again with --no-prefetch
+               (its per-pair errors must equal the prefetched run's bit for
+               bit); each run writes res.json into a temporary directory.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
@@ -23,9 +32,12 @@ is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -61,9 +73,19 @@ OPS_ALPHA_DIRECT = 32  # K-cover step: sigma at the pixel + compositing
 OPS_PAIR_SELECT = 24  # select: polynomial sigma + gates + T update
 OPS_PAIR_WALK = 29  # sub-tile walk: polynomial sigma + compositing
 OPS_CHAIN = 236  # pose_chain, per contributing record
+# sub-tile backward, per live (slot, pixel) pair of a walked chunk:
+# sub_alpha 23 (sigma 10, negate 1, expf 8, opacity 1, clamp 1, gates 2) +
+# the adjoint 22 (1-alpha, T*, live, w, phi 2, run 2, suffix, fmax, divide,
+# suffix*inv, T*phi, subtract, gates 4, d_sigma 2, w*g_d) + the moment
+# sums 6 (row sum of d_sigma, x*d_sigma 2, x^2*d_sigma 2, w*g_d)
+OPS_PAIR_BWD = 51
+OPS_DECODE = 6  # sub-tile chain: origin decode from moment row 7, per slot
 
 TOL_FWD = 1e-5  # abs, depth_acc / alpha (f32 sum order over K)
 TOL_BWD_REL = 1e-4  # rel, 12 pose scalars (f32 sum order over ~14 M terms)
+# rel to each row's largest magnitude: the sub-tile moments of d_sigma
+# (per-pixel values equal, summed over 256 pixels in another order)
+TOL_MOM_REL = 1e-5
 
 
 def log(msg):
@@ -298,11 +320,95 @@ def check_kernels(pair, dev):
               needed * 2 * (OPS_PROJECT + OPS_ALPHA_DIRECT)
               + chained * OPS_CHAIN),
         max_rel_err=rel))
+    del kb_k
+    entries += check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx)
     return entries
 
 
-def run_main_path(pair, dev):
-    """Phase 4: prepare -> scene -> optimize, through the entry points."""
+def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
+    """K5a / K5b at the kcover=0 path's shapes: the tracking scene's
+    sub-tile slot buffer built at the init pose, rendered at a pose about a
+    pixel away, with cotangents made from a numpy seed."""
+    entries = []
+    slot, meta, _ = fs.build_subtile_slot_buffer(scene, vm, K, W, H, NEAR, FAR)
+    m_pad = slot.shape[1]
+    p8 = fs.project8(slot, cam_s, NEAR, FAR)
+    out, cd = fs.subtile_fwd(p8, meta, n_ty, n_tx)
+    m_out = out.shape[1]
+    rng = np.random.default_rng(SEED)
+    g = torch.as_tensor(rng.standard_normal((2, m_out)).astype(np.float32),
+                        device=dev)
+    sin = torch.cat([out, g]).contiguous()
+    mom_k = fs.subtile_bwd(p8, sin, meta, n_ty, n_tx)
+    mom_k2 = fs.subtile_bwd(p8, sin, meta, n_ty, n_tx)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mom_p = fs._subtile_bwd_plain(p8, sin, meta, n_ty, n_tx, stats=stats)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    rel_rows = [float((mom_k[r] - mom_p[r]).abs().max()
+                      / mom_p[r].abs().max().clamp_min(1e-30))
+                for r in range(7)]
+    err = float((mom_k[:7] - mom_p[:7]).abs().max())
+    row7 = torch.equal(mom_k[7], mom_p[7])
+    zero_p = (mom_p == 0).all(dim=0)
+    zeros_equal = torch.equal(zero_p, (mom_k == 0).all(dim=0))
+    repeat = torch.equal(mom_k, mom_k2)
+    walked = int(cd.sum()) * fs.CHUNK
+    log(f"[kernels] subtile_bwd: M_pad={m_pad} walked_slots={walked} "
+        f"max_abs_err={err:.3e} max_rel_err_by_row="
+        f"{[float(f'{x:.3e}') for x in rel_rows]} row7_equal={row7} "
+        f"zero_fill_equal={zeros_equal} bitwise_repeatable={repeat} "
+        f"(full size, no crop)")
+    if not (max(rel_rows) <= TOL_MOM_REL and row7 and zeros_equal and repeat):
+        raise RuntimeError("subtile_bwd disagrees with its plain version: "
+                           f"rows {rel_rows}, row7 {row7}, zero-fill "
+                           f"{zeros_equal}, repeatable {repeat}")
+    ms = time_ms(lambda: fs.subtile_bwd(p8, sin, meta, n_ty, n_tx), 20)
+    entries.append(kernel_entry(
+        "subtile_bwd", "gsplatloc_tpu_torch/csrc/subtile_bwd.cu",
+        "gsplatloc_tpu/ops/fused_subtile.py:782", err, ms, pms,
+        bound(walked * 8 * 4 + 4 * 4 * m_out + 8 * 4 * m_pad
+              + 4 * meta.numel(),
+              stats["pairs"] * OPS_PAIR_BWD + walked * OPS_COEFF),
+        max_rel_err=max(rel_rows), walked_slots=walked,
+        pairs=stats["pairs"]))
+    del mom_k2, mom_p
+
+    d_k = fs.subtile_chain(slot, mom_k, cam_s, meta, n_tx)
+    d_k2 = fs.subtile_chain(slot, mom_k, cam_s, meta, n_tx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_p = fs._chain_xla(slot, mom_k, cam_s, meta, n_tx)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    err = float((d_k - d_p).abs().max())
+    rel = err / float(d_p.abs().max())
+    repeat = torch.equal(d_k, d_k2)
+    lo, hi = int(meta[1]), int(meta[-1])
+    in_range = hi - lo
+    nonzero = int((mom_k[:7, lo:hi] != 0).any(dim=0).sum())
+    log(f"[kernels] subtile_chain: slots_in_range={in_range} "
+        f"slots_with_moments={nonzero} max_abs_err={err:.3e} "
+        f"max_rel_err={rel:.3e} bitwise_repeatable={repeat}")
+    if not rel <= TOL_BWD_REL or not repeat:
+        raise RuntimeError(f"subtile_chain disagrees: rel {rel}, "
+                           f"repeatable {repeat}")
+    ms = time_ms(lambda: fs.subtile_chain(slot, mom_k, cam_s, meta, n_tx), 50)
+    entries.append(kernel_entry(
+        "subtile_chain", "gsplatloc_tpu_torch/csrc/subtile_bwd.cu",
+        "gsplatloc_tpu/ops/fused_subtile.py:708", err, ms, pms,
+        bound(7 * 4 * in_range + (1 + 5) * 4 * nonzero + 4 * meta.numel()
+              + 4 * 16,
+              nonzero * (OPS_DECODE + OPS_PROJECT + OPS_CHAIN)),
+        max_rel_err=rel, slots_with_moments=nonzero))
+    return entries
+
+
+def run_main_path(pair, dev, config):
+    """Phases 4 and 5: prepare -> scene -> optimize, through the entry
+    points."""
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -319,14 +425,141 @@ def run_main_path(pair, dev):
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     res = optimize_pose(scene, out["tar_c2w"], out["src_depth"], pair["K"],
-                        W, H, config=TrackingConfig(max_steps=300),
-                        backend="fused")
+                        W, H, config=config, backend="fused")
     e1.record()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     opt_ms = e0.elapsed_time(e1)
     return dict(out=out, res=res, counts=counts, t_prep=t_prep,
                 opt_ms=opt_ms, peak=torch.cuda.max_memory_allocated())
+
+
+def tracked_pair(pair, dev, config, tag):
+    """Phases 4/5: the pair tracked twice with `config`; checks recovery
+    (eT and eR down 10x), finite results, the second run bit-equal to the
+    first. Returns the first run's launch counts."""
+    runs = [run_main_path(pair, dev, config) for _ in range(2)]
+    r = runs[0]
+    res, out = r["res"], r["out"]
+    e_t0, e_r0 = pose_errors(out["tar_c2w"], out["src_c2w"])
+    e_t, e_r = pose_errors(res.best_pose.to_c2w(), out["src_c2w"])
+    counts = r["counts"]
+    step_kernel = "kcover_step_fwd" if config.kcover > 0 else "subtile_bwd"
+    launched = counts[step_kernel]
+    log(f"[{tag}] config kcover={config.kcover} max_steps={config.max_steps}")
+    log(f"[{tag}] init  eT {e_t0 * 100:.4f} cm  eR {e_r0:.4f} deg")
+    log(f"[{tag}] best  eT {e_t * 100:.4f} cm  eR {e_r:.4f} deg  "
+        f"best_loss {float(res.best_loss):.6e}")
+    log(f"[{tag}] steps_run {res.steps_run} rebuilds {res.rebuilds} "
+        f"selects {res.selects} slot_overflow {res.slot_overflow}")
+    log(f"[{tag}] prepare {r['t_prep'] * 1e3:.1f} ms; optimize "
+        f"{r['opt_ms']:.1f} ms = {r['opt_ms'] / max(launched, 1):.3f} ms per "
+        f"launched step ({launched} launched, {res.steps_run} run); second "
+        f"run optimize {runs[1]['opt_ms']:.1f} ms")
+    log(f"[{tag}] launches {json.dumps(counts)}")
+    log(f"[{tag}] max_memory_allocated {r['peak'] / 2**20:.0f} MiB")
+
+    if res.slot_overflow:
+        raise RuntimeError(f"slot_overflow on the {tag} pair")
+    if launched < res.steps_run:
+        raise RuntimeError("fewer step launches than steps run")
+    if not (e_t * 10 <= e_t0 and e_r * 10 <= e_r0):
+        raise RuntimeError("pose error not reduced 10x: "
+                           f"eT {e_t0}->{e_t}, eR {e_r0}->{e_r}")
+    for t in (res.best_pose.quat, res.best_pose.trans, res.best_loss,
+              out["src_depth"]):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite value in the result")
+    if tuple(out["src_depth"].shape) != (H, W):
+        raise RuntimeError("depth target has the wrong shape")
+    res2 = runs[1]["res"]
+    same = (torch.equal(res.best_pose.quat, res2.best_pose.quat)
+            and torch.equal(res.best_pose.trans, res2.best_pose.trans)
+            and torch.equal(res.best_loss, res2.best_loss)
+            and res.steps_run == res2.steps_run
+            and res.rebuilds == res2.rebuilds
+            and runs[1]["counts"] == counts)
+    log(f"[{tag}] second run bit-equal to the first: {same}")
+    if not same:
+        raise RuntimeError("second run differs from the first")
+    return counts
+
+
+def _read_run(run_dir):
+    """(per-pair records, final summary record, config) of one track run."""
+    recs = [json.loads(line) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    pairs = [r for r in recs if "eT" in r]
+    summary = [r for r in recs if "ate_rmse" in r][-1]
+    cfg = json.loads((run_dir / "config.json").read_text())
+    return pairs, summary, cfg
+
+
+def run_track_cli():
+    """Phase 6: `cli track` on a generated 4-frame Synthetic sequence at
+    1200x680, in process, with the kernels' launch counters zeroed before
+    and read after each run."""
+    from gsplatloc_tpu_torch import cli
+
+    n_frames, n_iters = 4, 300
+    root = Path(tempfile.mkdtemp(prefix="gsl_track_"))
+    try:
+        results = {}
+        for tag, extra, want in (
+                ("kcover16", [], ("kcover_step_fwd", "kcover_step_bwd",
+                                  "kcover_select_records", "project8",
+                                  "subtile_fwd")),
+                ("kcover0", ["--kcover", "0"], ("project8", "subtile_fwd",
+                                                "subtile_bwd",
+                                                "subtile_chain")),
+                ("kcover16_serial", ["--no-prefetch"], ())):
+            run_dir = root / tag
+            argv = ["track", "--dataset", "Synthetic", "--frames",
+                    str(n_frames), "--height", str(H), "--width", str(W),
+                    "--num-iters", str(n_iters), "--run-dir", str(run_dir),
+                    "--quiet", *extra]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            res = json.loads((run_dir / "res.json").read_text())
+            pairs, summary, cfg = _read_run(run_dir / "synthetic")
+            e_t = [p["eT"] for p in pairs]
+            e_r = [p["eR"] for p in pairs]
+            log(f"[track:{tag}] argv {' '.join(argv[1:])}")
+            log(f"[track:{tag}] knn_method {cfg['knn_method']} pairs "
+                f"{len(pairs)} ATE-RMSE {summary['ate_rmse'] * 100:.5f} cm "
+                f"AAE-RMSE {summary['aae_rmse']:.5f} deg; eT/pair [cm] "
+                f"{[round(x * 100, 5) for x in e_t]} eR/pair [deg] "
+                f"{[round(x, 5) for x in e_r]}")
+            log(f"[track:{tag}] steps {[int(p['steps']) for p in pairs]} "
+                f"rebuilds {[int(p['rebuilds']) for p in pairs]} selects "
+                f"{[int(p['selects']) for p in pairs]}")
+            log(f"[track:{tag}] wall {wall:.2f} s = {wall / max(len(pairs), 1):.2f}"
+                f" s per pair; stage_s {json.dumps(summary['stage_s'])}")
+            log(f"[track:{tag}] launches {json.dumps(counts)}")
+            if len(pairs) != n_frames - 1:
+                raise RuntimeError(f"track {tag}: {len(pairs)} pairs logged")
+            if "synthetic" not in res.get("Synthetic", {}):
+                raise RuntimeError(f"track {tag}: res.json lacks the run")
+            if not all(np.isfinite(e_t + e_r)):
+                raise RuntimeError(f"track {tag}: non-finite eT/eR")
+            if cfg["knn_method"] != "exact":
+                raise RuntimeError(f"track {tag}: knn_method "
+                                   f"{cfg['knn_method']}, not exact")
+            for name in want:
+                if counts[name] < 1:
+                    raise RuntimeError(f"track {tag} never launched {name}")
+            results[tag] = e_t
+        same = results["kcover16"] == results["kcover16_serial"]
+        log(f"[track] --no-prefetch per-pair eT bit-equal to the prefetched "
+            f"run: {same}")
+        if not same:
+            raise RuntimeError("prefetched and serial track runs differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -357,56 +590,38 @@ def main():
     entries = check_kernels(pair, dev)
     torch.cuda.empty_cache()
 
-    # 4. main path, twice
-    runs = [run_main_path(pair, dev) for _ in range(2)]
-    r = runs[0]
-    res, out = r["res"], r["out"]
-    e_t0, e_r0 = pose_errors(out["tar_c2w"], out["src_c2w"])
-    e_t, e_r = pose_errors(res.best_pose.to_c2w(), out["src_c2w"])
-    counts = r["counts"]
-    launched = counts["kcover_step_fwd"]
-    log(f"[main] init  eT {e_t0 * 100:.4f} cm  eR {e_r0:.4f} deg")
-    log(f"[main] best  eT {e_t * 100:.4f} cm  eR {e_r:.4f} deg  "
-        f"best_loss {float(res.best_loss):.6e}")
-    log(f"[main] steps_run {res.steps_run} rebuilds {res.rebuilds} "
-        f"selects {res.selects} slot_overflow {res.slot_overflow}")
-    log(f"[main] prepare {r['t_prep'] * 1e3:.1f} ms; optimize "
-        f"{r['opt_ms']:.1f} ms = {r['opt_ms'] / max(launched, 1):.3f} ms per "
-        f"launched step ({launched} launched, {res.steps_run} run); second "
-        f"run optimize {runs[1]['opt_ms']:.1f} ms")
-    log(f"[main] launches {json.dumps(counts)}")
-    log(f"[main] max_memory_allocated {r['peak'] / 2**20:.0f} MiB")
-
-    if res.slot_overflow:
-        raise RuntimeError("slot_overflow on the smoke pair")
+    # 4. main path (K-cover, the product default), twice
+    counts4 = tracked_pair(pair, dev, TrackingConfig(max_steps=300), "main")
     for name in ("kcover_step_fwd", "kcover_step_bwd",
                  "kcover_select_records", "project8", "subtile_fwd"):
-        if counts[name] < 1:
+        if counts4[name] < 1:
             raise RuntimeError(f"main path never launched {name}")
-    if counts["kcover_step_fwd"] < res.steps_run:
-        raise RuntimeError("fewer step launches than steps run")
-    if counts["kcover_step_fwd"] != counts["kcover_step_bwd"]:
+    if counts4["kcover_step_fwd"] != counts4["kcover_step_bwd"]:
         raise RuntimeError("forward and backward step launches differ")
-    if not (e_t * 10 <= e_t0 and e_r * 10 <= e_r0):
-        raise RuntimeError("pose error not reduced 10x: "
-                           f"eT {e_t0}->{e_t}, eR {e_r0}->{e_r}")
-    for t in (res.best_pose.quat, res.best_pose.trans, res.best_loss,
-              out["src_depth"]):
-        if not bool(torch.isfinite(t).all()):
-            raise RuntimeError("non-finite value in the result")
-    if tuple(out["src_depth"].shape) != (H, W):
-        raise RuntimeError("depth target has the wrong shape")
-    res2 = runs[1]["res"]
-    same = (torch.equal(res.best_pose.quat, res2.best_pose.quat)
-            and torch.equal(res.best_pose.trans, res2.best_pose.trans)
-            and torch.equal(res.best_loss, res2.best_loss)
-            and res.steps_run == res2.steps_run
-            and runs[1]["counts"] == counts)
-    log(f"[main] second run bit-equal to the first: {same}")
-    if not same:
-        raise RuntimeError("second run differs from the first")
+    torch.cuda.empty_cache()
 
+    # 5. the sub-tile path (kcover=0), twice
+    counts5 = tracked_pair(pair, dev, TrackingConfig(max_steps=300, kcover=0),
+                           "subtile")
+    for name in ("project8", "subtile_fwd", "subtile_bwd", "subtile_chain"):
+        if counts5[name] < 1:
+            raise RuntimeError(f"sub-tile path never launched {name}")
+    # every step renders forward and backward; the forward walk runs once
+    # more for the pair's depth target
+    if not (counts5["subtile_bwd"] == counts5["subtile_chain"]
+            == counts5["subtile_fwd"] - 1 == counts5["project8"] - 1):
+        raise RuntimeError("forward and backward step launches differ: "
+                           f"{counts5}")
+    torch.cuda.empty_cache()
+
+    # 6. the track entry point
+    run_track_cli()
+
+    counts = dict(counts4, subtile_bwd=counts5["subtile_bwd"],
+                  subtile_chain=counts5["subtile_chain"])
     for e in entries:
+        # launches on the path that runs the kernel: K-cover (phase 4) for
+        # K1-K4, sub-tile (phase 5) for the sub-tile backward
         e["launches"] = counts[e["name"]]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

@@ -16,12 +16,14 @@
 // totals w*phi, sweep 2 recomputes and uses total minus running prefix.
 // The 12 pose partials are reduced warp -> block -> (n_blocks, 12) scratch,
 // and a second kernel adds the block rows in a fixed order in double: no
-// float atomics, so a run is bitwise repeatable.
+// float atomics, so a run is bitwise repeatable (reduce.cuh; the sub-tile
+// pose chain shares it).
 #include "project.cuh"
+#include "reduce.cuh"
 
 namespace gsl {
 
-constexpr int STEP_THREADS = 256;
+constexpr int STEP_THREADS = REDUCE_THREADS;
 
 struct StepEval {
     Proj pr;
@@ -137,32 +139,14 @@ kcover_step_bwd_kernel(const float* __restrict__ cam_p,
         }
     }
 
-    // warp shuffle -> shared -> one 12-vector per block (fixed order)
-    __shared__ float warp_part[STEP_THREADS / 32][12];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-        float v = part[j];
-#pragma unroll
-        for (int ofs = 16; ofs > 0; ofs >>= 1)
-            v = v + __shfl_down_sync(0xffffffffu, v, ofs);
-        if (lane == 0) warp_part[warp][j] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < 12) {
-        float v = 0.0f;
-        for (int w = 0; w < STEP_THREADS / 32; ++w)
-            v = v + warp_part[w][threadIdx.x];
-        scratch[(long long)blockIdx.x * 12 + threadIdx.x] = v;
-    }
+    block_sum12(part, scratch);
 }
 
 // Sum the (n_blocks, 12) block partials in a fixed order, in double.
 // One block of 12 warps: warp j owns scalar j, lane l adds rows l, l+32, ...
 // in ascending order, then a fixed shuffle tree joins the 32 lanes.
-__global__ void kcover_step_bwd_reduce_kernel(
-    const float* __restrict__ scratch, float* __restrict__ out, int n_blocks) {
+__global__ void sum12_kernel(const float* __restrict__ scratch,
+                             float* __restrict__ out, int n_blocks) {
     const int j = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     double acc = 0.0;
@@ -172,6 +156,12 @@ __global__ void kcover_step_bwd_reduce_kernel(
     for (int ofs = 16; ofs > 0; ofs >>= 1)
         acc = acc + __shfl_down_sync(0xffffffffu, acc, ofs);
     if (lane == 0) out[j] = (float)acc;
+}
+
+int launch_sum12(const float* scratch, float* out, int n_blocks,
+                 cudaStream_t stream) {
+    sum12_kernel<<<1, 12 * 32, 0, stream>>>(scratch, out, n_blocks);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace gsl
@@ -202,10 +192,8 @@ extern "C" int gsl_kcover_step_bwd(const void* cam, const void* kbuf,
         (const float*)cam, (const float*)kbuf, (const float*)gd,
         (const float*)ga, (float*)scratch, k_cover, m_out, n_tx, near_p,
         far_p);
-    int err = (int)cudaGetLastError();
+    const int err = (int)cudaGetLastError();
     if (err != 0) return err;
-    gsl::kcover_step_bwd_reduce_kernel<<<1, 12 * 32, 0,
-                                         (cudaStream_t)stream>>>(
-        (const float*)scratch, (float*)out, n_blocks);
-    return (int)cudaGetLastError();
+    return gsl::launch_sum12((const float*)scratch, (float*)out, n_blocks,
+                             (cudaStream_t)stream);
 }

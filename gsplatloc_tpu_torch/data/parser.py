@@ -16,6 +16,7 @@ present; pass device="cpu" for the plain PyTorch path.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, as_f32, resolve_device
@@ -123,14 +124,14 @@ class Parser:
         **dataset_kwargs,
     ):
         self.device = resolve_device(device)
-        if knn_method == "exact":
-            raise NotImplementedError(
-                "knn_method='exact' needs the C++ KdTree, which a later "
-                "slice of the port brings")
         self._data = get_dataset(data_set, name, **dataset_kwargs)
         self.K = as_f32(self._data.K, self.device)
         self.normalize = normalize
         self.backend = backend
+        # "exact": the depth-target scene's scale-init kNN comes from the
+        # host KdTree over the raw src cloud (rigid-invariant, so it
+        # composes with the world/PCA transforms); any other method is
+        # computed where the scene is built
         self.knn_method = knn_method
         self._knn_cache = {}  # frame index -> (N, 5) sq dists (last 3)
         self._frame_cache = {}  # frame index -> RGBDFrame (last 3)
@@ -147,10 +148,30 @@ class Parser:
         return self._frame_cache[index]
 
     def knn_for_frame(self, index: int):
-        """Precomputed scale-init kNN sq-dists of frame `index`'s raw cloud
-        — None until exact kNN is ported (the 3-frame cache is in place for
-        it)."""
-        return self._knn_cache.get(index)
+        """Exact scale-init kNN sq-dists (N, 5) of frame `index`'s raw cloud
+        (None unless knn_method == "exact"). Cached for three frames: pair
+        i's tar is pair i-1's src, so sequential tracking computes each
+        frame once, and a prefetching runner's pair i+1 never evicts pair
+        i's frames. Host work only (numpy back-projection + the C++ tree),
+        so a prefetch worker can run it while the card is busy."""
+        if self.knn_method != "exact":
+            return None
+        if index not in self._knn_cache:
+            from ..ops.knn import exact_knn_sq_dists
+
+            frame = self.frame(index)
+            depth = np.asarray(frame.depth, np.float32)
+            K = np.asarray(self._data.K, np.float32)
+            h, w = depth.shape
+            u = np.arange(w, dtype=np.float32)[None, :]
+            v = np.arange(h, dtype=np.float32)[:, None]
+            x = (u - K[0, 2]) / K[0, 0] * depth
+            y = (v - K[1, 2]) / K[1, 1] * depth
+            cam_pts = np.stack([x, y, depth], axis=-1).reshape(-1, 3)
+            self._knn_cache[index] = exact_knn_sq_dists(cam_pts, 5)
+            for k in sorted(self._knn_cache)[:-3]:
+                del self._knn_cache[k]
+        return self._knn_cache[index]
 
     def __len__(self):
         return len(self._data) - 1
@@ -162,13 +183,17 @@ class Parser:
     def __getitem__(self, index: int) -> AlignData:
         if not 0 <= index < len(self._data) - 1:
             raise IndexError(f"pair index {index} out of range")
-        tar = self.frame(index)
-        src = self.frame(index + 1)
+        return self.pair_from_frames(self.frame(index), self.frame(index + 1),
+                                     self.knn_for_frame(index + 1))
+
+    def pair_from_frames(self, tar, src, src_knn=None) -> AlignData:
+        """AlignData of the pair (tar, src) of decoded frames on the
+        parser's device; src_knn: the src cloud's precomputed scale-init
+        kNN (`knn_for_frame`), or None."""
         h, w = src.hw
         out = _assemble_pair(
             tar.rgb, tar.depth, tar.c2w, src.rgb, src.depth, src.c2w, self.K,
             height=h, width=w, normalize=self.normalize, backend=self.backend,
-            src_knn_sq_dists=self.knn_for_frame(index + 1),
-            device=self.device,
+            src_knn_sq_dists=src_knn, device=self.device,
         )
         return AlignData(tar_nums=out["tar_points"].shape[0], **out)

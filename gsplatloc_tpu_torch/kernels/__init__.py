@@ -46,7 +46,11 @@ _SIGNATURES = {
     "gsl_kcover_select_records": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _F, _F, _P],
     "gsl_project8": [_P, _P, _P, _L, _F, _F, _P],
     "gsl_subtile_fwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
+    "gsl_subtile_bwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
+    "gsl_subtile_chain": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
 }
+
+REDUCE_THREADS = 256  # block size of the pose-partial reductions (reduce.cuh)
 
 _lib = None
 build_seconds = None  # wall time of the build this process made (None: reused)
@@ -176,6 +180,8 @@ def _wrappers():
         "kcover_select_records": kcover.select_kcover_records,
         "project8": fused_subtile.project8,
         "subtile_fwd": fused_subtile.subtile_fwd,
+        "subtile_bwd": fused_subtile.subtile_bwd,
+        "subtile_chain": fused_subtile.subtile_chain,
     }
 
 

@@ -15,6 +15,7 @@ import torch
 from .._device import DEFAULT_DEVICE, as_f32, resolve_device
 from ..ops.knn import (
     brute_knn_sq_dists,
+    exact_knn_sq_dists,
     grid_knn_sq_dists,
     init_gs_scales_from_sq_dists,
 )
@@ -54,19 +55,16 @@ def scene_from_point_cloud(
     precomputed kNN squared distances.
 
     knn_method: "auto" (grid-window when grid_shape is given, else brute),
-    "grid" or "brute". "exact" (the C++ KdTree) is not ported yet and
-    raises — it never falls back to another method silently."""
+    "grid", "brute" or "exact" (the host C++ KdTree, ops/knn.py; raises
+    when its library cannot be built — it never falls back to another
+    method silently)."""
     dev = resolve_device(device)
+    if knn_sq_dists is None and knn_method == "exact":
+        knn_sq_dists = exact_knn_sq_dists(points, knn_k)
     points = as_f32(points, dev)
     rgbs = as_f32(rgbs, dev)
     n = points.shape[0]
     if knn_sq_dists is None:
-        if knn_method == "exact":
-            raise NotImplementedError(
-                "knn_method='exact' needs the C++ KdTree, which a later "
-                "slice of the port brings; use 'grid'/'brute' or pass "
-                "precomputed knn_sq_dists"
-            )
         if grid_shape is not None and knn_method in ("auto", "grid"):
             h, w = grid_shape
             knn_sq_dists = grid_knn_sq_dists(

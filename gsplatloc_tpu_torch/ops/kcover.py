@@ -408,9 +408,6 @@ def kcover_step_fwd(kbuf, cam, n_ty, n_tx, near, far):
 
 kcover_step_fwd.launches = 0
 
-_STEP_THREADS = 256  # csrc/kcover_step.cu STEP_THREADS
-
-
 def kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a):
     """K-cover step backward: the 12 pose scalars [dR(9), dt(3)] from the
     scrambled cotangent rows g_d/g_a (M_out,). CUDA tensor: the
@@ -424,7 +421,7 @@ def kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a):
     k_cover, m_out = _check_step_args(kbuf, cam)
     kernels.require(g_d, "g_d", (m_out,), device=kbuf.device)
     kernels.require(g_a, "g_a", (m_out,), device=kbuf.device)
-    n_blocks = -(-m_out // _STEP_THREADS)
+    n_blocks = -(-m_out // kernels.REDUCE_THREADS)
     scratch = torch.empty((n_blocks, 12), dtype=F32, device=kbuf.device)
     out = torch.empty((12,), dtype=F32, device=kbuf.device)
     lib = kernels.load()

@@ -11,13 +11,20 @@ stop. Semantics:
   * best tracking starts after step 100; patience 200 on best TOTAL loss;
     the best (lowest-loss) pose is the pair's estimate.
 
+Two render paths of the fused backend (both subtile=True):
+
+  * kcover > 0 (the product default): the K-cover render over per-pixel
+    cover records, re-selected by a select gate checked every step;
+  * kcover = 0: the sub-tile render walking the depth-sorted slot buffer
+    itself (ops/fused_subtile.py); only the rebuild gate exists.
+
 The reference runs this as one on-device while_loop; here it is an eager
-Python loop whose pose, Adam state, best-loss bookkeeping and both gate
+Python loop whose pose, Adam state, best-loss bookkeeping and the gate
 decisions live in device tensors. The host reads back ONCE per segment of
-`resort_every` steps (see `_Loop.read_boundary`), never once per step:
-steps enqueued after a segment's select gate has tripped are computed and
-masked out, so the results equal a per-step check while the step kernels
-are launched for every enqueued step.
+`resort_every` steps, never once per step: steps enqueued after a
+segment's select gate has tripped are computed and masked out, so the
+results equal a per-step check while the step kernels are launched for
+every enqueued step.
 """
 
 from __future__ import annotations
@@ -137,15 +144,20 @@ def optimize_pose(
 ) -> PairResult:
     """Optimize the camera pose of one frame pair on `device`.
 
-    backend "fused" with config.subtile and config.kcover > 0 (the product
-    default) is the K-cover tracking path; every other combination is a
-    later slice of the port and raises NotImplementedError."""
-    if backend != "fused" or not config.subtile or config.kcover <= 0:
+    backend "fused" with config.subtile is ported: config.kcover > 0 (the
+    product default) is the K-cover tracking path, config.kcover == 0 the
+    sub-tile path. The general rasterizer (other backends) and the
+    full-tile path (subtile=False) are later slices of the port and raise
+    NotImplementedError."""
+    if backend != "fused" or not config.subtile:
         raise NotImplementedError(
-            f"optimize_pose(backend={backend!r}, subtile={config.subtile}, "
-            f"kcover={config.kcover}): only backend='fused' with "
-            "subtile=True and kcover>0 is ported")
+            f"optimize_pose(backend={backend!r}, subtile={config.subtile}): "
+            "only backend='fused' with subtile=True is ported")
     from ..ops.binning import TILE_H, TILE_W
+    from ..ops.fused_subtile import (
+        build_subtile_slot_buffer,
+        render_tracking_depth_subtile,
+    )
     from ..ops.fused_tracking import cam_vector
     from ..ops.kcover import (
         build_kcover_buffer,
@@ -161,13 +173,20 @@ def optimize_pose(
     n_ty = -(-height // TILE_H)
     n_tx = -(-width // TILE_W)
     near, far = config.near_plane, config.far_plane
+    use_kcover = config.kcover > 0
 
     def make_slots(viewmat):
-        """(slot3d, meta, z_min, overflow) at `viewmat`."""
-        s3, m3, ovf = build_kcover_slot_buffer(
-            scene, viewmat, K, width, height, near, far,
-            slot_budget=config.slot_budget,
-        )
+        """(slot3d, meta, z_min, overflow) at `viewmat`; overflow is only
+        ever True on the K-cover path (live slots beyond the budget)."""
+        if use_kcover:
+            s3, m3, ovf = build_kcover_slot_buffer(
+                scene, viewmat, K, width, height, near, far,
+                slot_budget=config.slot_budget,
+            )
+        else:
+            s3, m3, _ = build_subtile_slot_buffer(
+                scene, viewmat, K, width, height, near, far)
+            ovf = torch.zeros((), dtype=torch.bool, device=dev)
         # nearest visible scene depth at the rebuild pose, for the motion
         # gate's parallax bound
         z = scene.means @ viewmat[:3, :3].T[:, 2] + viewmat[2, 3]
@@ -207,19 +226,24 @@ def optimize_pose(
         return torch.where(counter > config.coast_after_steps,
                            config.coast_gate_factor, 1.0)
 
-    def loss_and_grads(pose, kbuf):
+    def loss_and_grads(pose, buf):
+        """buf: the K-cover records, or (slot3d, meta) when kcover == 0."""
         quat = pose.quat.detach().requires_grad_(True)
         trans = pose.trans.detach().requires_grad_(True)
         viewmat = invert_se3(PoseState(quat, trans).to_c2w())
-        depth, _alpha = render_tracking_depth_kcover(
-            viewmat, K, width, height, kbuf, near, far)
+        if use_kcover:
+            depth, _alpha = render_tracking_depth_kcover(
+                viewmat, K, width, height, buf, near, far)
+        else:
+            depth, _alpha = render_tracking_depth_subtile(
+                viewmat, K, width, height, buf[0], buf[1], near, far)
         tl = tracking_loss(depth, depth_gt, config.depth_lambda,
                            config.normal_lambda)
         g_q, g_t = torch.autograd.grad(tl.total, (quat, trans))
         return tl.total.detach(), tl.depth.detach(), tl.silhouette.detach(), g_q, g_t
 
-    def body_inner(c: _Carry, kbuf) -> _Carry:
-        loss, dl, sl, g_q, g_t = loss_and_grads(c.pose, kbuf)
+    def body_inner(c: _Carry, buf) -> _Carry:
+        loss, dl, sl, g_q, g_t = loss_and_grads(c.pose, buf)
 
         # best-loss bookkeeping (after warmup)
         track = c.step >= config.warmup_steps + 1
@@ -264,7 +288,7 @@ def optimize_pose(
     with torch.no_grad():
         init_pose = PoseState.from_c2w(init_c2w)
         slot3d, slot_meta, rb_zmin, overflow = make_slots(invert_se3(init_c2w))
-        kbuf = make_kbuf(slot3d, slot_meta, init_pose)
+        kbuf = make_kbuf(slot3d, slot_meta, init_pose) if use_kcover else None
     inf = torch.full((), float("inf"), dtype=F32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     c = _Carry(
@@ -302,6 +326,7 @@ def optimize_pose(
                 kbuf = make_kbuf(slot3d, slot_meta, c.pose)
                 sel_pose = c.pose
                 n_selects += 1
+        buf = kbuf if use_kcover else (slot3d, slot_meta)
 
         # enqueue the whole segment without reading anything back; `run`
         # carries the inner loop condition on the device and masks the
@@ -311,14 +336,14 @@ def optimize_pose(
             with torch.no_grad():
                 if config.early_stop:
                     run = run & (c.counter < config.patience)
-                if i > 0:
+                if use_kcover and i > 0:
                     # selection staleness gate INSIDE the loop condition;
                     # the first step of a segment always runs
                     run = run & (
                         moved_px(c.pose, sel_pose, rb_zmin)
                         <= config.select_motion_px
                         * gate_factor(c.coast_counter))
-            new_c = body_inner(c, kbuf)
+            new_c = body_inner(c, buf)
             with torch.no_grad():
                 c = _select(run, new_c, c)
 
@@ -328,7 +353,9 @@ def optimize_pose(
                 resort_t = resort_t & (
                     moved_px(c.pose, rb_pose, rb_zmin)
                     > config.resort_motion_px * gate_factor(c.coast_counter))
-            if config.select_motion_px > 0:
+            if not use_kcover:
+                select_t = torch.zeros((), dtype=torch.bool, device=dev)
+            elif config.select_motion_px > 0:
                 select_t = resort_t | (
                     moved_px(c.pose, sel_pose, rb_zmin)
                     > config.select_motion_px * gate_factor(c.coast_counter))

@@ -51,12 +51,25 @@ def test_package_layout_mirrors_the_reference():
                 "ops/knn.py", "ops/pca.py", "models/pose.py",
                 "models/gaussians.py", "opt/adam.py", "opt/tracking.py",
                 "losses.py", "data/base.py", "data/synthetic.py",
-                "data/datasets.py", "data/parser.py"):
+                "data/datasets.py", "data/parser.py", "cli.py",
+                "tracking/runner.py", "eval/metrics.py", "eval/logger.py",
+                "utils/checkpoint.py", "native/src/kdtree.h"):
         assert (PKG / rel).exists(), rel
         assert (ROOT / "gsplatloc_tpu" / rel).exists(), rel
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "kcover_select.cu", "kcover_step.cu", "subtile_fwd.cu"]
-    assert (PKG / "csrc" / "project.cuh").exists()
+        "kcover_select.cu", "kcover_step.cu", "subtile_bwd.cu",
+        "subtile_fwd.cu"]
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
+        "project.cuh", "reduce.cuh"]
+    # the port builds its own copy of the kNN sources, never the reference's
+    assert sorted(p.name for p in (PKG / "native" / "src").iterdir()) == [
+        "kdtree.h", "knn_capi.cc"]
+    from gsplatloc_tpu_torch import native
+
+    assert native._SRC == PKG / "native" / "src"
+    assert native.library_path().parent == PKG / "_build"
+    assert "-ffp-contract=off" in native.CXX_FLAGS
+    assert not any("march" in f for f in native.CXX_FLAGS)
 
 
 def test_import_needs_no_cuda_and_builds_nothing():
@@ -69,10 +82,15 @@ def test_import_needs_no_cuda_and_builds_nothing():
         "from gsplatloc_tpu_torch.ops import kcover, fused_subtile, knn, pca\n"
         "from gsplatloc_tpu_torch.opt import tracking\n"
         "from gsplatloc_tpu_torch.data import parser\n"
+        "from gsplatloc_tpu_torch import cli, native\n"
+        "from gsplatloc_tpu_torch.tracking import runner\n"
+        "from gsplatloc_tpu_torch.eval import logger, metrics\n"
+        "from gsplatloc_tpu_torch.utils import checkpoint\n"
+        "assert native._lib is None\n"
         "assert not torch.cuda.is_available()\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "assert torch.backends.cudnn.allow_tf32 is False\n"
-        "assert kernels._lib is None\n"
+        "assert kernels._lib is None and kernels.build_seconds is None\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m.startswith('gsplatloc_tpu.') or m == 'gsplatloc_tpu' "
         "for m in sys.modules)\n"
@@ -85,8 +103,6 @@ def test_import_needs_no_cuda_and_builds_nothing():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    assert not (PKG / "_build").exists() or not any(
-        (PKG / "_build").glob("*.so"))
 
 
 def test_tf32_is_off():
@@ -96,9 +112,11 @@ def test_tf32_is_off():
 
 
 def _entry_points():
+    from gsplatloc_tpu_torch import cli
     from gsplatloc_tpu_torch.data import parser
     from gsplatloc_tpu_torch.models.gaussians import scene_from_point_cloud
     from gsplatloc_tpu_torch.opt.tracking import optimize_pose
+    from gsplatloc_tpu_torch.tracking.runner import SequenceRunner
 
     pts = np.random.default_rng(0).random((8, 3)).astype(np.float32)
     eye = np.eye(4, dtype=np.float32)
@@ -115,12 +133,20 @@ def _entry_points():
         "Parser": lambda: parser.Parser("Synthetic", "x", n_frames=3,
                                         height=8, width=8),
         "optimize_pose": lambda: optimize_pose(scene, eye, dep, K, 2, 2),
+        "SequenceRunner": lambda: SequenceRunner(
+            "Synthetic", "", knn_method="grid", n_frames=3, height=8,
+            width=8),
+        "cli track": lambda: cli.main(
+            ["track", "--dataset", "Synthetic", "--frames", "3", "--height",
+             "8", "--width", "8", "--num-iters", "2", "--knn", "grid",
+             "--quiet", "--run-dir", str(ROOT / "_build_never")]),
     }
 
 
 @pytest.mark.parametrize("name", ["scene_from_point_cloud", "render_depth_gt",
                                   "_assemble_pair", "Parser",
-                                  "optimize_pose"])
+                                  "optimize_pose", "SequenceRunner",
+                                  "cli track"])
 def test_entry_point_with_default_device_raises_without_a_card(name):
     """The default device is the card; with none present an entry point
     raises — it never carries on on the CPU by itself."""
@@ -154,10 +180,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kc.kcover_step_fwd(kb, cam, n_ty, n_tx, 1e-2, 1e10)
     kc.kcover_step_bwd(kb, cam, n_ty, n_tx, 1e-2, 1e10,
                        torch.zeros(m_out), torch.zeros(m_out))
+    sin = torch.zeros((4, m_out))
+    mom = fs.subtile_bwd(p8, sin, meta, n_ty, n_tx)
+    fs.subtile_chain(slot, mom, cam, meta, n_tx)
     counts = kernels.launch_counts()
     assert set(counts) == {"kcover_step_fwd", "kcover_step_bwd",
                            "kcover_select_records", "project8",
-                           "subtile_fwd"}
+                           "subtile_fwd", "subtile_bwd", "subtile_chain"}
     assert all(v == 0 for v in counts.values()), counts
     assert kernels._lib is None  # nothing was built or loaded
 
@@ -170,6 +199,35 @@ def test_every_kernel_entry_point_has_a_signature_and_a_source():
     assert len(kernels.source_hash()) == 16
     assert "-fmad=false" in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def test_subtile_backward_wrappers_refuse_what_the_kernels_do_not_take():
+    """On a CUDA tensor the new wrappers check device, dtype, shape and
+    contiguity before they launch; here (no card) a meta tensor on the
+    CPU next to a "CUDA" input cannot be made, so the checks are exercised
+    through kernels.require with the shapes the wrappers pass."""
+    import inspect
+
+    from gsplatloc_tpu_torch.ops import fused_subtile as fs
+
+    for fn, needed in ((fs.subtile_bwd, ('"proj8"', '"sin"', '"meta"')),
+                       (fs.subtile_chain, ('"slot3d"', '"mom"', '"meta"',
+                                           "require_cam"))):
+        src = inspect.getsource(fn)
+        assert "if not" in src and ".is_cuda" in src
+        for name in needed:
+            assert name in src, (fn.__name__, name)
+        assert "try:" not in src  # no fallback from kernel to plain version
+        assert f"{fn.__name__}.launches += 1" in src
+    m_out = 8 * 256
+    with pytest.raises(ValueError):
+        kernels.require(torch.zeros((8, m_out)), "sin", (4, m_out))
+    with pytest.raises(TypeError):
+        kernels.require(torch.zeros((10,), dtype=torch.int64), "meta", (10,),
+                        dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.require(torch.zeros((8, 256)).T.contiguous().T, "mom",
+                        (8, 256))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

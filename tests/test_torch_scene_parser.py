@@ -126,16 +126,32 @@ def test_scene_from_point_cloud_matches_reference(method):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7, err_msg=f)
 
 
-def test_exact_knn_is_refused_not_replaced():
-    """The C++ KdTree path is a later slice: asking for it raises, it never
-    falls back to the grid window silently."""
+def test_exact_knn_is_refused_not_replaced(monkeypatch):
+    """knn_method='exact' runs the host C++ KdTree (its scales are the
+    exact ones, not the grid window's); when that library cannot be built
+    it raises — it never falls back to the grid window silently."""
+    from gsplatloc_tpu_torch import native
+
     pts = _grid_cloud(8, 8).reshape(-1, 3)
-    with pytest.raises(NotImplementedError):
+    exact = tgauss.scene_from_point_cloud(pts, pts, knn_method="exact",
+                                          device="cpu")
+    brute = tgauss.scene_from_point_cloud(pts, pts, knn_method="brute",
+                                          device="cpu")
+    np.testing.assert_allclose(to_np(exact.scales), to_np(brute.scales),
+                               rtol=1e-6)
+
+    def broken():
+        raise RuntimeError("exact-kNN library build failed (test)")
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "build_library", broken)
+    with pytest.raises(RuntimeError, match="exact-kNN"):
         tgauss.scene_from_point_cloud(pts, pts, knn_method="exact",
                                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        tparser.Parser("Synthetic", "x", knn_method="exact", device="cpu",
+    p = tparser.Parser("Synthetic", "x", knn_method="exact", device="cpu",
                        n_frames=3, height=8, width=8)
+    with pytest.raises(RuntimeError, match="exact-kNN"):
+        p[0]
 
 
 def test_pca_quirks_match_reference():

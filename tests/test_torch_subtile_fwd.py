@@ -229,10 +229,20 @@ def test_early_stop_counts_chunks_like_reference():
     assert abs(float(out_t[1, 7 * 16 + 7]) - 0.999) < 1e-5
 
 
-def test_backward_through_subtile_render_raises(cloud):
+def test_backward_through_subtile_render_takes_the_plain_k5_path(cloud):
+    """On CPU tensors the backward of the sub-tile render runs the plain
+    versions of K5a/K5b (`_subtile_bwd_plain`, `_chain_xla`), gives a finite
+    nonzero pose gradient, and counts no kernel launch."""
+    from gsplatloc_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
     vm = tt(cloud["vm"]).requires_grad_(True)
     d, _a = tfs.render_tracking_depth_subtile(
         vm, tt(cloud["K"]), cloud["w"], cloud["h"], cloud["slot_t"],
         cloud["meta_t"])
-    with pytest.raises(NotImplementedError):
-        d.sum().backward()
+    d.sum().backward()
+    g = to_np(vm.grad)
+    assert np.isfinite(g).all() and np.abs(g[:3]).max() > 0
+    np.testing.assert_array_equal(g[3], 0.0)
+    assert all(v == 0 for v in kernels.launch_counts().values())
+    assert kernels._lib is None
