@@ -24,6 +24,15 @@ Phases (each raises on failure; nothing carries on on the CPU):
                --kcover 0, and the --kcover 16 run again with --no-prefetch
                (its per-pair errors must equal the prefetched run's bit for
                bit); each run writes res.json into a temporary directory.
+  7. general — the general rasterizer (backend "pallas", kernels K6a/K6b):
+               (a) general_parity on the card against the dense oracle
+               (64x128, 300 anisotropic splats, RGB+ED, gradients to every
+               Gaussian parameter and the viewmat); (b) the phase-4 pair
+               with its depth target from render_depth_gt(backend="pallas")
+               tracked by optimize_pose(backend="pallas", max_steps=300),
+               twice, launch counters zeroed before each run and read
+               after; (c) `cli track --backend pallas` on 4 Synthetic
+               frames at 1200x680, 300 iterations, exact kNN.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
@@ -49,6 +58,7 @@ from gsplatloc_tpu_torch.data.synthetic import box_room_frame
 from gsplatloc_tpu_torch.models.gaussians import scene_from_point_cloud
 from gsplatloc_tpu_torch.ops import fused_subtile as fs
 from gsplatloc_tpu_torch.ops import kcover as kc
+from gsplatloc_tpu_torch.ops import rasterize_tiles as rt
 from gsplatloc_tpu_torch.ops.binning import TILE_H, TILE_W
 from gsplatloc_tpu_torch.ops.camera import depth_to_points
 from gsplatloc_tpu_torch.ops.fused_tracking import cam_vector
@@ -80,12 +90,30 @@ OPS_CHAIN = 236  # pose_chain, per contributing record
 # sums 6 (row sum of d_sigma, x*d_sigma 2, x^2*d_sigma 2, w*g_d)
 OPS_PAIR_BWD = 51
 OPS_DECODE = 6  # sub-tile chain: origin decode from moment row 7, per slot
+# general rasterizer (csrc/rasterize.cuh, rasterize_fwd.cu, rasterize_bwd.cu),
+# per (slot, pixel) pair evaluated: the alive test, dy, sigma 9, negate,
+# expf 8, opacity, clamp, two gates + select, the zero test. The bound
+# counts only the pairs inside each slot's alpha-gate footprint
+# (footprint_pairs), not every pixel of the tile the kernels walk.
+OPS_RAST_EVAL = 26
+# forward, per pair that passes the gates: 1-alpha, T*, the live test,
+# T*alpha, select, 4 channel multiply-adds, the alpha sum
+OPS_RAST_FWD_HIT = 14
+# backward, per pair that passes the gates: 1-alpha, T*, live, w 2, phi 8,
+# run 2, suffix, fmax, divide, T*phi, suffix*inv, subtract, gates 3,
+# d_sigma 2, the 10 per-pixel products and sums 23 (the per-slot warp
+# shuffles and the fixed-order warp sum are not counted)
+OPS_RAST_BWD_HIT = 49
 
 TOL_FWD = 1e-5  # abs, depth_acc / alpha (f32 sum order over K)
 TOL_BWD_REL = 1e-4  # rel, 12 pose scalars (f32 sum order over ~14 M terms)
 # rel to each row's largest magnitude: the sub-tile moments of d_sigma
 # (per-pixel values equal, summed over 256 pixels in another order)
 TOL_MOM_REL = 1e-5
+# rel to each row's largest magnitude: the general backward's per-slot
+# gradients (per-pixel values equal, summed over the tile's 2048 pixels in
+# another order)
+TOL_RAST_REL = 1e-5
 
 
 def log(msg):
@@ -406,9 +434,174 @@ def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
     return entries
 
 
-def run_main_path(pair, dev, config):
-    """Phases 4 and 5: prepare -> scene -> optimize, through the entry
-    points."""
+def walked_slots(meta, cd):
+    """In-segment slots of the chunks each tile's walk reached."""
+    n = cd.shape[0]
+    starts, ends = meta[1:1 + n].long(), meta[2:2 + n].long()
+    reach = (starts // rt.CHUNK) * rt.CHUNK + cd.long() * rt.CHUNK
+    return int((torch.minimum(ends, reach) - starts).clamp_min(0).sum())
+
+
+def footprint_pairs(records, meta, cd, n_tx):
+    """(slot, pixel) pairs the general walk needs: for each in-segment slot
+    of the chunks each tile's walk reached, the pixels of its tile whose
+    centre lies in the bounding box of the slot's alpha-gate footprint
+    sigma <= ln(255 * opacity) (sigma = 0.5 d^T Q d, Q the conic: half
+    extents sqrt(2 ln(255 opa) Q^-1_xx) and sqrt(2 ln(255 opa) Q^-1_yy)).
+    Every pair that passes the gates lies inside; a walk limited to these
+    boxes composites the same images."""
+    n = cd.shape[0]
+    starts, ends = meta[1:1 + n].long(), meta[2:2 + n].long()
+    reach = (starts // rt.CHUNK) * rt.CHUNK + cd.long() * rt.CHUNK
+    counts = (torch.minimum(ends, reach) - starts).clamp_min(0)
+    tile = torch.repeat_interleave(torch.arange(n, device=cd.device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    slot = starts[tile] + torch.arange(tile.numel(), device=cd.device) \
+        - first[tile]
+    mx, my, qa, qb, qc, _z, opa = records[:7, slot].double()
+    det = qa * qc - qb * qb
+    s0 = torch.log(255.0 * opa)
+    ok = (s0 >= 0) & (det > 0) & (qa > 0) & (qc > 0)
+    # a conic that is not positive definite has no bounded footprint: its
+    # whole tile is counted
+    degenerate = (s0 >= 0) & ~ok
+    s0 = torch.where(ok, s0, 0.0)
+    det = torch.where(ok, det, 1.0)
+    # a hair wide, so that f32 rounding at the rim stays inside
+    hx = torch.sqrt(2.0 * s0 * qc.abs() / det) * (1 + 1e-6) + 1e-4
+    hy = torch.sqrt(2.0 * s0 * qa.abs() / det) * (1 + 1e-6) + 1e-4
+    x0 = (tile % n_tx).double() * TILE_W
+    y0 = (tile // n_tx + meta[0].long()).double() * TILE_H
+
+    def span(c, h, o, size):
+        lo = torch.ceil(c - h - 0.5 - o).clamp(0, size - 1)
+        hi = torch.floor(c + h - 0.5 - o).clamp(-1, size - 1)
+        return (hi - lo + 1).clamp_min(0)
+
+    nx, ny = span(mx, hx, x0, TILE_W), span(my, hy, y0, TILE_H)
+    return int(torch.where(ok, nx * ny, 0.0).sum()
+               + degenerate.sum() * (TILE_H * TILE_W))
+
+
+def check_rasterize(pair, dev):
+    """K6a / K6b at the general path's full shapes: the tracking scene
+    (816,000 isotropic splats) projected at the initial pose, its SH
+    colours evaluated, binned by bin_and_sort (inverse permutation kept)
+    and gathered into the (16, M_pad) slot buffer; the backward's depth and
+    alpha cotangents from the tracking loss of that render against the src
+    frame's depth, its r/g/b cotangents from a numpy seed (the tracking
+    loss gives them zero) so that rows 7-9 are exercised."""
+    from gsplatloc_tpu_torch.losses import tracking_loss
+    from gsplatloc_tpu_torch.ops.projection import project_gaussians
+    from gsplatloc_tpu_torch.ops.rasterize import _view_dirs
+    from gsplatloc_tpu_torch.ops.sh import eval_sh
+
+    entries = []
+    K = torch.as_tensor(pair["K"], device=dev)
+    tar_c2w = torch.as_tensor(pair["tar_c2w"], device=dev)
+    vm = invert_se3(tar_c2w)
+    pts = transform_points(
+        tar_c2w, depth_to_points(torch.as_tensor(pair["tar_depth"], device=dev), K))
+    rgb = torch.as_tensor(pair["tar_rgb"], device=dev).reshape(-1, 3) / 255.0
+    scene = scene_from_point_cloud(pts, rgb, grid_shape=(H, W), device=dev)
+    with torch.no_grad():
+        proj = project_gaussians(scene.means, scene.quats, scene.scales, vm,
+                                 K, W, H)
+        colors = eval_sh(1, scene.sh_coeffs, _view_dirs(scene.means, vm))
+        packed, meta, b = rt.pack_slots(
+            proj.mean2d, proj.conic, proj.depth, scene.opacities, colors,
+            proj.valid, proj.radius, W, H)
+    del scene, proj, colors, pts, rgb
+    n_ty, n_tx = b.n_tiles_y, b.n_tiles_x
+    m_pad = packed.shape[1]
+
+    out_k, cd_k = rt.rasterize_fwd(packed, meta, n_ty, n_tx)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, cd_p = rt._composite_fwd_plain(packed, meta, n_ty, n_tx,
+                                          stats=stats)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    err = float((out_k - out_p).abs().max())
+    bit_equal = torch.equal(out_k, out_p)
+    cd_equal = torch.equal(cd_k, cd_p)
+    walked = walked_slots(meta, cd_k)
+    needed = footprint_pairs(packed, meta, cd_k, n_tx)
+    log(f"[kernels] rasterize_fwd: M={b.num_pairs} M_pad={m_pad} tiles="
+        f"{n_ty}x{n_tx} walked_slots={walked} walked_pairs={stats['pairs']} "
+        f"footprint_pairs={needed} hits={stats['hits']} max_abs_err="
+        f"{err:.3e} bit_equal={bit_equal} chunks_done_equal={cd_equal} "
+        f"(full size, no crop)")
+    if not (bit_equal and cd_equal):
+        raise RuntimeError("rasterize_fwd disagrees with its plain version: "
+                           f"err={err} chunks_done_equal={cd_equal}")
+    if needed < stats["hits"]:
+        raise RuntimeError(f"footprint count {needed} below the gate hits "
+                           f"{stats['hits']}")
+    del out_p
+    ms = time_ms(lambda: rt.rasterize_fwd(packed, meta, n_ty, n_tx), 20)
+    entries.append(kernel_entry(
+        "rasterize_fwd", "gsplatloc_tpu_torch/csrc/rasterize_fwd.cu",
+        "gsplatloc_tpu/ops/rasterize_pallas.py:387", err, ms, pms,
+        bound(walked * rt.N_FIELDS * 4 + out_k.numel() * 4
+              + 4 * (cd_k.numel() + meta.numel()),
+              needed * OPS_RAST_EVAL + stats["hits"] * OPS_RAST_FWD_HIT),
+        walked_slots=walked, walked_pairs=stats["pairs"],
+        footprint_pairs=needed, hits=stats["hits"]))
+
+    # cotangents of the five images
+    d_acc = out_k[3].clone().requires_grad_(True)
+    alpha = out_k[4].clone().requires_grad_(True)
+    depth = (d_acc / alpha.clamp_min(1e-10))[:H, :W]
+    target = torch.as_tensor(pair["src_depth"], device=dev)
+    g_d, g_a = torch.autograd.grad(tracking_loss(depth, target).total,
+                                   (d_acc, alpha))
+    rng = np.random.default_rng(SEED)
+    g_rgb = torch.as_tensor(rng.standard_normal(
+        (3,) + tuple(g_d.shape)).astype(np.float32), device=dev)
+    px_in = torch.cat([out_k, g_rgb * g_d.std(), g_d[None], g_a[None]])
+    px_in = px_in.contiguous()
+    g_k = rt.rasterize_bwd(packed, meta, cd_k, px_in, n_ty, n_tx)
+    g_k2 = rt.rasterize_bwd(packed, meta, cd_k, px_in, n_ty, n_tx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_p = rt._composite_bwd_plain(packed, meta, cd_k, px_in, n_ty, n_tx)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    rel_rows = [float((g_k[r] - g_p[r]).abs().max()
+                      / g_p[r].abs().max().clamp_min(1e-30))
+                for r in range(rt.N_FIELDS)]
+    err = float((g_k - g_p).abs().max())
+    zeros_equal = torch.equal((g_k == 0).all(dim=0), (g_p == 0).all(dim=0))
+    pad_zero = bool((g_k[rt.N_FIELDS:] == 0).all())
+    repeat = torch.equal(g_k, g_k2)
+    log(f"[kernels] rasterize_bwd: max_abs_err={err:.3e} max_rel_err_by_row="
+        f"{[float(f'{x:.3e}') for x in rel_rows]} zero_fill_equal="
+        f"{zeros_equal} rows_10_15_zero={pad_zero} bitwise_repeatable="
+        f"{repeat} (full size, no crop)")
+    if not (max(rel_rows) <= TOL_RAST_REL and zeros_equal and pad_zero
+            and repeat):
+        raise RuntimeError("rasterize_bwd disagrees with its plain version: "
+                           f"rows {rel_rows}, zero-fill {zeros_equal}, "
+                           f"pad rows zero {pad_zero}, repeatable {repeat}")
+    del g_k2, g_p
+    ms = time_ms(lambda: rt.rasterize_bwd(packed, meta, cd_k, px_in, n_ty,
+                                          n_tx), 10)
+    entries.append(kernel_entry(
+        "rasterize_bwd", "gsplatloc_tpu_torch/csrc/rasterize_bwd.cu",
+        "gsplatloc_tpu/ops/rasterize_pallas.py:404", err, ms, pms,
+        bound(walked * rt.N_FIELDS * 4 + px_in.numel() * 4
+              + g_k.numel() * 4 + 4 * (cd_k.numel() + meta.numel()),
+              needed * OPS_RAST_EVAL + stats["hits"] * OPS_RAST_BWD_HIT),
+        max_rel_err=max(rel_rows), walked_slots=walked))
+    return entries
+
+
+def run_main_path(pair, dev, config, backend="fused"):
+    """Phases 4, 5 and 7: prepare -> scene -> optimize, through the entry
+    points. The depth target is rendered by the tracking backend's own
+    kernel family (the sub-tile walk for "fused")."""
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -416,7 +609,8 @@ def run_main_path(pair, dev, config):
     out = _assemble_pair(
         pair["tar_rgb"], pair["tar_depth"], pair["tar_c2w"],
         pair["src_rgb"], pair["src_depth"], pair["src_c2w"], pair["K"],
-        height=H, width=W, normalize=True, backend="subtile")
+        height=H, width=W, normalize=True,
+        backend="subtile" if backend == "fused" else backend)
     scene = scene_from_point_cloud(out["tar_points"], out["colors"],
                                    grid_shape=(H, W))
     torch.cuda.synchronize()
@@ -425,7 +619,7 @@ def run_main_path(pair, dev, config):
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     res = optimize_pose(scene, out["tar_c2w"], out["src_depth"], pair["K"],
-                        W, H, config=config, backend="fused")
+                        W, H, config=config, backend=backend)
     e1.record()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -434,19 +628,21 @@ def run_main_path(pair, dev, config):
                 opt_ms=opt_ms, peak=torch.cuda.max_memory_allocated())
 
 
-def tracked_pair(pair, dev, config, tag):
-    """Phases 4/5: the pair tracked twice with `config`; checks recovery
+def tracked_pair(pair, dev, config, tag, backend="fused"):
+    """Phases 4/5/7: the pair tracked twice with `config`; checks recovery
     (eT and eR down 10x), finite results, the second run bit-equal to the
     first. Returns the first run's launch counts."""
-    runs = [run_main_path(pair, dev, config) for _ in range(2)]
+    runs = [run_main_path(pair, dev, config, backend) for _ in range(2)]
     r = runs[0]
     res, out = r["res"], r["out"]
     e_t0, e_r0 = pose_errors(out["tar_c2w"], out["src_c2w"])
     e_t, e_r = pose_errors(res.best_pose.to_c2w(), out["src_c2w"])
     counts = r["counts"]
-    step_kernel = "kcover_step_fwd" if config.kcover > 0 else "subtile_bwd"
+    step_kernel = ("rasterize_bwd" if backend != "fused" else
+                   "kcover_step_fwd" if config.kcover > 0 else "subtile_bwd")
     launched = counts[step_kernel]
-    log(f"[{tag}] config kcover={config.kcover} max_steps={config.max_steps}")
+    log(f"[{tag}] backend {backend} config kcover={config.kcover} "
+        f"max_steps={config.max_steps}")
     log(f"[{tag}] init  eT {e_t0 * 100:.4f} cm  eR {e_r0:.4f} deg")
     log(f"[{tag}] best  eT {e_t * 100:.4f} cm  eR {e_r:.4f} deg  "
         f"best_loss {float(res.best_loss):.6e}")
@@ -495,24 +691,30 @@ def _read_run(run_dir):
     return pairs, summary, cfg
 
 
-def run_track_cli():
-    """Phase 6: `cli track` on a generated 4-frame Synthetic sequence at
-    1200x680, in process, with the kernels' launch counters zeroed before
-    and read after each run."""
+TRACK_RUNS = (
+    ("kcover16", [], ("kcover_step_fwd", "kcover_step_bwd",
+                      "kcover_select_records", "project8", "subtile_fwd")),
+    ("kcover0", ["--kcover", "0"], ("project8", "subtile_fwd", "subtile_bwd",
+                                    "subtile_chain")),
+    ("kcover16_serial", ["--no-prefetch"], ()),
+)
+TRACK_RUNS_GENERAL = (
+    ("pallas", ["--backend", "pallas"], ("rasterize_fwd", "rasterize_bwd")),
+)
+
+
+def run_track_cli(runs):
+    """Phases 6 and 7c: `cli track` on a generated 4-frame Synthetic
+    sequence at 1200x680, in process, with the kernels' launch counters
+    zeroed before and read after each run. Returns {tag: launch counts}."""
     from gsplatloc_tpu_torch import cli
 
     n_frames, n_iters = 4, 300
     root = Path(tempfile.mkdtemp(prefix="gsl_track_"))
+    all_counts = {}
     try:
         results = {}
-        for tag, extra, want in (
-                ("kcover16", [], ("kcover_step_fwd", "kcover_step_bwd",
-                                  "kcover_select_records", "project8",
-                                  "subtile_fwd")),
-                ("kcover0", ["--kcover", "0"], ("project8", "subtile_fwd",
-                                                "subtile_bwd",
-                                                "subtile_chain")),
-                ("kcover16_serial", ["--no-prefetch"], ())):
+        for tag, extra, want in runs:
             run_dir = root / tag
             argv = ["track", "--dataset", "Synthetic", "--frames",
                     str(n_frames), "--height", str(H), "--width", str(W),
@@ -553,13 +755,16 @@ def run_track_cli():
                 if counts[name] < 1:
                     raise RuntimeError(f"track {tag} never launched {name}")
             results[tag] = e_t
-        same = results["kcover16"] == results["kcover16_serial"]
-        log(f"[track] --no-prefetch per-pair eT bit-equal to the prefetched "
-            f"run: {same}")
-        if not same:
-            raise RuntimeError("prefetched and serial track runs differ")
+            all_counts[tag] = counts
+        if "kcover16_serial" in results:
+            same = results["kcover16"] == results["kcover16_serial"]
+            log(f"[track] --no-prefetch per-pair eT bit-equal to the "
+                f"prefetched run: {same}")
+            if not same:
+                raise RuntimeError("prefetched and serial track runs differ")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return all_counts
 
 
 def main():
@@ -589,6 +794,8 @@ def main():
     pair = make_pair()
     entries = check_kernels(pair, dev)
     torch.cuda.empty_cache()
+    entries += check_rasterize(pair, dev)
+    torch.cuda.empty_cache()
 
     # 4. main path (K-cover, the product default), twice
     counts4 = tracked_pair(pair, dev, TrackingConfig(max_steps=300), "main")
@@ -615,13 +822,43 @@ def main():
     torch.cuda.empty_cache()
 
     # 6. the track entry point
-    run_track_cli()
+    run_track_cli(TRACK_RUNS)
+    torch.cuda.empty_cache()
+
+    # 7. the general rasterizer
+    from gsplatloc_tpu_torch.ops.parity import general_parity
+
+    t0 = time.perf_counter()
+    par = general_parity(device=dev)
+    log(f"[general] general_parity 64x128 n=300: ok={par['ok']} fwd_err "
+        f"{par['fwd_err']:.3e} a_err {par['a_err']:.3e} grad_rels "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in par['grad_rels'].items()})}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    if not par["ok"]:
+        raise RuntimeError(f"general_parity failed on the card: {par}")
+    counts7 = tracked_pair(pair, dev, TrackingConfig(max_steps=300),
+                           "general", backend="pallas")
+    # every step renders forward and backward; the forward runs once more
+    # for the pair's depth target
+    if not (counts7["rasterize_bwd"] >= 1 and counts7["rasterize_fwd"]
+            == counts7["rasterize_bwd"] + 1):
+        raise RuntimeError(f"general path launch counts: {counts7}")
+    others = {k: v for k, v in counts7.items()
+              if k not in ("rasterize_fwd", "rasterize_bwd") and v}
+    if others:
+        raise RuntimeError(f"the general path launched other kernels: "
+                           f"{others}")
+    torch.cuda.empty_cache()
+    run_track_cli(TRACK_RUNS_GENERAL)
 
     counts = dict(counts4, subtile_bwd=counts5["subtile_bwd"],
-                  subtile_chain=counts5["subtile_chain"])
+                  subtile_chain=counts5["subtile_chain"],
+                  rasterize_fwd=counts7["rasterize_fwd"],
+                  rasterize_bwd=counts7["rasterize_bwd"])
     for e in entries:
         # launches on the path that runs the kernel: K-cover (phase 4) for
-        # K1-K4, sub-tile (phase 5) for the sub-tile backward
+        # K1-K4, sub-tile (phase 5) for the sub-tile backward, general
+        # (phase 7b) for K6a/K6b
         e["launches"] = counts[e["name"]]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

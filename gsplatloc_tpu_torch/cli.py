@@ -3,6 +3,7 @@
 Usage:
   python -m gsplatloc_tpu_torch.cli track --dataset Synthetic --frames 40
   python -m gsplatloc_tpu_torch.cli track --dataset Synthetic --kcover 0
+  python -m gsplatloc_tpu_torch.cli track --dataset Synthetic --backend pallas
   python -m gsplatloc_tpu_torch.cli track --dataset Replica --rooms room0 \
       --data-root datasets/Replica --num-iters 2000 --run-dir runs/track
   python -m gsplatloc_tpu_torch.cli tables --res runs/track/res.json \
@@ -119,7 +120,10 @@ def cmd_icp(args):
 
 def cmd_render(args):
     raise NotImplementedError(
-        "render: the general rasterizer is not ported yet (ROADMAP item 13)")
+        "render: the novel-view fly-through is not ported yet (ROADMAP "
+        "item 16, with eval/visualize.py and data/traj.py): its only output "
+        "is PNG panels drawn with matplotlib, which the port does not "
+        "depend on")
 
 
 def build_parser():
@@ -141,8 +145,12 @@ def build_parser():
     t.add_argument("--seed", type=int, default=42)
     t.add_argument("--num-iters", type=int, default=2000)
     t.add_argument("--max-pairs", type=int, default=1998)
-    # "fused" (the frozen-scene tracking kernels) is the only ported backend
-    t.add_argument("--backend", default="fused")
+    t.add_argument("--backend", default="fused",
+                   choices=["fused", "pallas", "reference"],
+                   help="fused: the frozen-scene tracking kernels (K-cover "
+                        "or sub-tile, --kcover); pallas: the general "
+                        "rasterizer's tiled kernels; reference: its dense "
+                        "oracle (small images only)")
     t.add_argument("--algorithm", default="gsplatloc_tpu")
     t.add_argument("--kcover", type=int, default=16,
                    help="per-pixel K-cover rendering with K covers "

@@ -36,31 +36,45 @@ def render_depth_gt(
     height: int,
     width: int,
     grid_shape=None,  # (H, W) if grid-ordered
-    backend: str = "subtile",
+    backend: str = "pallas",
     knn_sq_dists=None,  # precomputed (N, k)
     device=DEFAULT_DEVICE,
 ) -> torch.Tensor:
     """Throwaway scene (opacity 1, kNN scales with the squared-distance
-    quirk, identity quats) rendered to depth, no grad. Returns (H, W).
+    quirk, identity quats, SH degree 1) rendered to depth, no grad.
+    Returns (H, W).
 
-    backend "subtile" renders through the sub-tile forward walk — the same
-    kernel family as the tracking render, so representation artifacts
-    cancel in the loss — with exact big-splat binning. The other backends
-    of the reference (general rasterizer, full-tile) are later slices."""
-    if backend != "subtile":
+    backend "pallas" / "reference": the general rasterizer (the tiled
+    hand-written kernels / the dense oracle) in ED mode. backend "subtile"
+    renders through the sub-tile forward walk — the same kernel family as
+    the fused tracking render, so representation artifacts cancel in the
+    loss — with exact big-splat binning. The full-tile "fused" render is
+    not ported yet."""
+    if backend == "fused":
         raise NotImplementedError(
-            f"render_depth_gt(backend={backend!r}): only 'subtile' is ported")
-    from ..ops.fused_subtile import (
-        build_subtile_slot_buffer,
-        render_tracking_depth_subtile,
-    )
-
+            "render_depth_gt(backend='fused'): the full-tile render "
+            "(ops/fused_tracking.py) is not ported yet (ROADMAP item 14)")
+    if backend not in ("subtile", "pallas", "reference"):
+        raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
     with torch.no_grad():
         scene = scene_from_point_cloud(points, rgbs, grid_shape=grid_shape,
                                        knn_sq_dists=knn_sq_dists, device=dev)
         K = as_f32(K, dev)
         vm = invert_se3(as_f32(c2w, dev))
+        if backend != "subtile":
+            from ..ops.rasterize import rasterize
+
+            render, _alpha = rasterize(
+                scene.means, scene.quats, scene.scales, scene.opacities,
+                scene.sh_coeffs, vm, K, width, height, sh_degree=1,
+                render_mode="ED", backend=backend)
+            return render[..., 0]
+        from ..ops.fused_subtile import (
+            build_subtile_slot_buffer,
+            render_tracking_depth_subtile,
+        )
+
         slot, meta, _ = build_subtile_slot_buffer(
             scene, vm, K, width, height, 1e-2, 1e10)
         depth, _alpha = render_tracking_depth_subtile(
@@ -70,7 +84,7 @@ def render_depth_gt(
 
 def _assemble_pair(
     tar_rgb, tar_depth, tar_c2w, src_rgb, src_depth, src_c2w, K,
-    height: int, width: int, normalize: bool = True, backend: str = "subtile",
+    height: int, width: int, normalize: bool = True, backend: str = "pallas",
     src_knn_sq_dists=None, device=DEFAULT_DEVICE,
 ):
     dev = resolve_device(device)
@@ -118,7 +132,7 @@ class Parser:
         data_set: str = "Replica",
         name: str = "room0",
         normalize: bool = True,
-        backend: str = "subtile",
+        backend: str = "pallas",
         knn_method: str = "auto",
         device=DEFAULT_DEVICE,
         **dataset_kwargs,

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "gsl_subtile_fwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
     "gsl_subtile_bwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
     "gsl_subtile_chain": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
+    "gsl_rasterize_fwd": [_P, _P, _P, _P, _I, _I, _L, _P],
+    "gsl_rasterize_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
 }
 
 REDUCE_THREADS = 256  # block size of the pose-partial reductions (reduce.cuh)
@@ -172,7 +174,7 @@ def require_cam(cam, device) -> None:
 
 
 def _wrappers():
-    from ..ops import fused_subtile, kcover
+    from ..ops import fused_subtile, kcover, rasterize_tiles
 
     return {
         "kcover_step_fwd": kcover.kcover_step_fwd,
@@ -182,6 +184,8 @@ def _wrappers():
         "subtile_fwd": fused_subtile.subtile_fwd,
         "subtile_bwd": fused_subtile.subtile_bwd,
         "subtile_chain": fused_subtile.subtile_chain,
+        "rasterize_fwd": rasterize_tiles.rasterize_fwd,
+        "rasterize_bwd": rasterize_tiles.rasterize_bwd,
     }
 
 

@@ -18,6 +18,11 @@ Two render paths of the fused backend (both subtile=True):
   * kcover = 0: the sub-tile render walking the depth-sorted slot buffer
     itself (ops/fused_subtile.py); only the rebuild gate exists.
 
+and the general rasterizer (backend "pallas": the tiled hand-written
+kernels of ops/rasterize_tiles.py; "reference": the dense oracle), which
+projects, bins and renders the whole scene in RGB+ED mode every step and
+has no slot buffer and no gate.
+
 The reference runs this as one on-device while_loop; here it is an eager
 Python loop whose pose, Adam state, best-loss bookkeeping and the gate
 decisions live in device tensors. The host reads back ONCE per segment of
@@ -131,6 +136,43 @@ def _select(run, new, old):
     return torch.where(run, new, old)
 
 
+def _render_general_depth(scene, viewmat, K, width, height, config,
+                          backend):
+    """Expected depth (H, W) of the general rasterizer, RGB+ED mode."""
+    from ..ops.rasterize import rasterize
+
+    render, _alpha = rasterize(
+        scene.means, scene.quats, scene.scales, scene.opacities,
+        scene.sh_coeffs, viewmat, K, width, height,
+        sh_degree=config.sh_degree, near_plane=config.near_plane,
+        far_plane=config.far_plane, render_mode="RGB+ED", backend=backend,
+    )
+    return render[..., 3]
+
+
+def _pose_step(render_depth, pose, adam_q, adam_t, step, depth_gt, config,
+               gamma):
+    """One tracking step: the depth render_depth(viewmat) at `pose`, the
+    masked tracking loss, its gradient w.r.t. the pose leaves, and one Adam
+    update of each leaf at its decayed learning rate. Returns (loss,
+    depth_loss, silhouette_loss, new pose, adam_q, adam_t)."""
+    quat = pose.quat.detach().requires_grad_(True)
+    trans = pose.trans.detach().requires_grad_(True)
+    depth = render_depth(invert_se3(PoseState(quat, trans).to_c2w()))
+    tl = tracking_loss(depth, depth_gt, config.depth_lambda,
+                       config.normal_lambda)
+    g_q, g_t = torch.autograd.grad(tl.total, (quat, trans))
+    with torch.no_grad():
+        new_q, adam_q = adam_step(
+            pose.quat, g_q, adam_q, step,
+            exponential_lr(config.quat_lr, gamma, step), config.quat_wd)
+        new_t, adam_t = adam_step(
+            pose.trans, g_t, adam_t, step,
+            exponential_lr(config.trans_lr, gamma, step), config.trans_wd)
+    return (tl.total.detach(), tl.depth.detach(), tl.silhouette.detach(),
+            PoseState(quat=new_q, trans=new_t), adam_q, adam_t)
+
+
 def optimize_pose(
     scene: GaussianScene,
     init_c2w,  # (4, 4) — tar frame pose
@@ -144,15 +186,20 @@ def optimize_pose(
 ) -> PairResult:
     """Optimize the camera pose of one frame pair on `device`.
 
-    backend "fused" with config.subtile is ported: config.kcover > 0 (the
-    product default) is the K-cover tracking path, config.kcover == 0 the
-    sub-tile path. The general rasterizer (other backends) and the
-    full-tile path (subtile=False) are later slices of the port and raise
-    NotImplementedError."""
-    if backend != "fused" or not config.subtile:
+    backend "fused" (subtile=True): config.kcover > 0 (the product default)
+    is the K-cover tracking path, config.kcover == 0 the sub-tile path.
+    backend "pallas" / "reference": the general rasterizer (the tiled
+    hand-written kernels / the dense oracle), rendered in RGB+ED mode with
+    config.sh_degree; PairResult.rebuilds == selects == 0. The full-tile
+    fused path (subtile=False) is not ported yet and raises."""
+    general = backend in ("pallas", "reference")
+    if not general and backend != "fused":
+        raise ValueError(f"unknown backend {backend!r}")
+    if not general and not config.subtile:
         raise NotImplementedError(
-            f"optimize_pose(backend={backend!r}, subtile={config.subtile}): "
-            "only backend='fused' with subtile=True is ported")
+            "optimize_pose(backend='fused', subtile=False): the full-tile "
+            "path (ops/fused_tracking.py render kernels) is not ported yet "
+            "(ROADMAP item 14)")
     from ..ops.binning import TILE_H, TILE_W
     from ..ops.fused_subtile import (
         build_subtile_slot_buffer,
@@ -173,7 +220,7 @@ def optimize_pose(
     n_ty = -(-height // TILE_H)
     n_tx = -(-width // TILE_W)
     near, far = config.near_plane, config.far_plane
-    use_kcover = config.kcover > 0
+    use_kcover = config.kcover > 0 and not general
 
     def make_slots(viewmat):
         """(slot3d, meta, z_min, overflow) at `viewmat`; overflow is only
@@ -226,24 +273,24 @@ def optimize_pose(
         return torch.where(counter > config.coast_after_steps,
                            config.coast_gate_factor, 1.0)
 
-    def loss_and_grads(pose, buf):
-        """buf: the K-cover records, or (slot3d, meta) when kcover == 0."""
-        quat = pose.quat.detach().requires_grad_(True)
-        trans = pose.trans.detach().requires_grad_(True)
-        viewmat = invert_se3(PoseState(quat, trans).to_c2w())
+    def render_depth(viewmat, buf):
+        """buf: the K-cover records, (slot3d, meta) when kcover == 0, or
+        None on the general path."""
+        if general:
+            return _render_general_depth(scene, viewmat, K, width, height,
+                                         config, backend)
         if use_kcover:
             depth, _alpha = render_tracking_depth_kcover(
                 viewmat, K, width, height, buf, near, far)
         else:
             depth, _alpha = render_tracking_depth_subtile(
                 viewmat, K, width, height, buf[0], buf[1], near, far)
-        tl = tracking_loss(depth, depth_gt, config.depth_lambda,
-                           config.normal_lambda)
-        g_q, g_t = torch.autograd.grad(tl.total, (quat, trans))
-        return tl.total.detach(), tl.depth.detach(), tl.silhouette.detach(), g_q, g_t
+        return depth
 
     def body_inner(c: _Carry, buf) -> _Carry:
-        loss, dl, sl, g_q, g_t = loss_and_grads(c.pose, buf)
+        loss, dl, sl, pose, adam_q, adam_t = _pose_step(
+            lambda vm: render_depth(vm, buf), c.pose, c.adam_q, c.adam_t,
+            c.step, depth_gt, config, gamma)
 
         # best-loss bookkeeping (after warmup)
         track = c.step >= config.warmup_steps + 1
@@ -264,17 +311,9 @@ def optimize_pose(
             c.coast_counter
         ).to(torch.int32)
 
-        lr_q = exponential_lr(config.quat_lr, gamma, c.step)
-        lr_t = exponential_lr(config.trans_lr, gamma, c.step)
-        new_q, adam_q = adam_step(
-            c.pose.quat, g_q, c.adam_q, c.step, lr_q, config.quat_wd
-        )
-        new_t, adam_t = adam_step(
-            c.pose.trans, g_t, c.adam_t, c.step, lr_t, config.trans_wd
-        )
         return _Carry(
             step=c.step + 1,
-            pose=PoseState(quat=new_q, trans=new_t),
+            pose=pose,
             adam_q=adam_q,
             adam_t=adam_t,
             best_loss=best_loss,
@@ -287,7 +326,12 @@ def optimize_pose(
 
     with torch.no_grad():
         init_pose = PoseState.from_c2w(init_c2w)
-        slot3d, slot_meta, rb_zmin, overflow = make_slots(invert_se3(init_c2w))
+        if general:
+            slot3d = slot_meta = rb_zmin = None
+            overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        else:
+            slot3d, slot_meta, rb_zmin, overflow = make_slots(
+                invert_se3(init_c2w))
         kbuf = make_kbuf(slot3d, slot_meta, init_pose) if use_kcover else None
     inf = torch.full((), float("inf"), dtype=F32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
@@ -326,7 +370,7 @@ def optimize_pose(
                 kbuf = make_kbuf(slot3d, slot_meta, c.pose)
                 sel_pose = c.pose
                 n_selects += 1
-        buf = kbuf if use_kcover else (slot3d, slot_meta)
+        buf = kbuf if use_kcover else None if general else (slot3d, slot_meta)
 
         # enqueue the whole segment without reading anything back; `run`
         # carries the inner loop condition on the device and masks the
@@ -347,6 +391,12 @@ def optimize_pose(
             with torch.no_grad():
                 c = _select(run, new_c, c)
 
+        if general:
+            # no slot buffer, no gate: the host reads the two counters only
+            with torch.no_grad():
+                host_step, host_counter = torch.stack(
+                    [c.step, c.counter]).tolist()
+            continue
         with torch.no_grad():
             resort_t = c.step > 0
             if config.resort_motion_px > 0:
@@ -379,3 +429,51 @@ def optimize_pose(
         selects=n_selects,
         slot_overflow=bool(overflow),
     )
+
+
+def optimize_pose_recorded(
+    scene: GaussianScene,
+    init_c2w,
+    depth_gt,
+    K,
+    width: int,
+    height: int,
+    n_steps: int = 200,
+    config: TrackingConfig = TrackingConfig(),
+    backend: str = "pallas",
+    device=DEFAULT_DEVICE,
+) -> dict:
+    """Debug variant of optimize_pose on the general rasterizer: a FIXED
+    number of steps (no early stop, no best-pose bookkeeping), returning
+    the per-step (n_steps,) series loss / depth_loss / silhouette_loss, the
+    pose before each step (quat (n_steps, 4), trans (n_steps, 3)) and
+    final_pose — the single-pair diagnostic harness."""
+    if backend not in ("pallas", "reference"):
+        raise ValueError(f"optimize_pose_recorded: backend {backend!r} is "
+                         "not a general-rasterizer backend")
+    dev = resolve_device(device)
+    scene = GaussianScene(*(as_f32(a, dev) for a in scene))
+    init_c2w = as_f32(init_c2w, dev)
+    depth_gt = as_f32(depth_gt, dev)
+    K = as_f32(K, dev)
+    gamma = config.lr_decay_total ** (1.0 / config.max_steps)
+    with torch.no_grad():
+        pose = PoseState.from_c2w(init_c2w)
+    adam_q, adam_t = adam_init(pose.quat), adam_init(pose.trans)
+    names = ("loss", "depth_loss", "silhouette_loss", "quat", "trans")
+
+    def render_depth(viewmat):
+        return _render_general_depth(scene, viewmat, K, width, height,
+                                     config, backend)
+
+    series = {k: [] for k in names}
+    for i in range(n_steps):
+        step = torch.tensor(i, dtype=torch.int32, device=dev)
+        loss, dl, sl, new_pose, adam_q, adam_t = _pose_step(
+            render_depth, pose, adam_q, adam_t, step, depth_gt, config, gamma)
+        for k, v in zip(names, (loss, dl, sl, pose.quat, pose.trans)):
+            series[k].append(v)
+        pose = new_pose
+    out = {k: torch.stack(v) for k, v in series.items()}
+    out["final_pose"] = pose
+    return out

@@ -92,10 +92,18 @@ class SequenceRunner:
                 "panel_every / pcd_every need eval/visualize.py, which is "
                 "not ported yet (ROADMAP item 16)")
         cfg = config or TrackingConfig()
-        if backend != "fused" or not cfg.subtile:
+        # the depth target is rendered through the same kernel family as
+        # the tracking render, so representation artifacts cancel
+        if backend in ("pallas", "reference"):
+            parser_backend = backend
+        elif backend != "fused":
+            raise ValueError(f"unknown backend {backend!r}")
+        elif cfg.subtile:
+            parser_backend = "subtile"
+        else:
             raise NotImplementedError(
-                f"SequenceRunner(backend={backend!r}, subtile={cfg.subtile})"
-                ": only the fused sub-tile backend is ported")
+                "SequenceRunner(backend='fused', subtile=False): the "
+                "full-tile path is not ported yet (ROADMAP item 14)")
         self.device = resolve_device(device)
         # "auto" -> EXACT KdTree scale init (the grid-window approximation
         # inflates grazing depth-edge scales into image-wide opaque blobs);
@@ -107,11 +115,9 @@ class SequenceRunner:
             native.build_library()
             knn_method = "exact"
         self.knn_method = knn_method
-        # the depth target is rendered through the same sub-tile walk as
-        # the tracking render, so representation artifacts cancel
         self.parser = Parser(
             data_set=data_set, name=scene_name, normalize=normalize,
-            backend="subtile", knn_method=knn_method, device=self.device,
+            backend=parser_backend, knn_method=knn_method, device=self.device,
             **dataset_kwargs,
         )
         self.config = cfg

@@ -48,7 +48,8 @@ def test_package_layout_mirrors_the_reference():
     for rel in ("ops/lie.py", "ops/camera.py", "ops/fused_tracking.py",
                 "ops/fused_subtile.py", "ops/kcover.py", "ops/filters.py",
                 "ops/projection.py", "ops/binning.py", "ops/sh.py",
-                "ops/knn.py", "ops/pca.py", "models/pose.py",
+                "ops/knn.py", "ops/pca.py", "ops/rasterize.py",
+                "ops/rasterize_ref.py", "ops/parity.py", "models/pose.py",
                 "models/gaussians.py", "opt/adam.py", "opt/tracking.py",
                 "losses.py", "data/base.py", "data/synthetic.py",
                 "data/datasets.py", "data/parser.py", "cli.py",
@@ -56,11 +57,14 @@ def test_package_layout_mirrors_the_reference():
                 "utils/checkpoint.py", "native/src/kdtree.h"):
         assert (PKG / rel).exists(), rel
         assert (ROOT / "gsplatloc_tpu" / rel).exists(), rel
+    # the counterpart of ops/rasterize_pallas.py, named for what it is here
+    assert (PKG / "ops" / "rasterize_tiles.py").exists()
+    assert (ROOT / "gsplatloc_tpu" / "ops" / "rasterize_pallas.py").exists()
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "kcover_select.cu", "kcover_step.cu", "subtile_bwd.cu",
-        "subtile_fwd.cu"]
+        "kcover_select.cu", "kcover_step.cu", "rasterize_bwd.cu",
+        "rasterize_fwd.cu", "subtile_bwd.cu", "subtile_fwd.cu"]
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
-        "project.cuh", "reduce.cuh"]
+        "project.cuh", "rasterize.cuh", "reduce.cuh"]
     # the port builds its own copy of the kNN sources, never the reference's
     assert sorted(p.name for p in (PKG / "native" / "src").iterdir()) == [
         "kdtree.h", "knn_capi.cc"]
@@ -80,6 +84,8 @@ def test_import_needs_no_cuda_and_builds_nothing():
         "import gsplatloc_tpu_torch as g\n"
         "from gsplatloc_tpu_torch import kernels, convert, losses\n"
         "from gsplatloc_tpu_torch.ops import kcover, fused_subtile, knn, pca\n"
+        "from gsplatloc_tpu_torch.ops import rasterize, rasterize_tiles\n"
+        "from gsplatloc_tpu_torch.ops import rasterize_ref, parity, sh\n"
         "from gsplatloc_tpu_torch.opt import tracking\n"
         "from gsplatloc_tpu_torch.data import parser\n"
         "from gsplatloc_tpu_torch import cli, native\n"
@@ -166,6 +172,7 @@ def test_tracking_config_defaults_equal_the_reference():
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     from gsplatloc_tpu_torch.ops import fused_subtile as fs
     from gsplatloc_tpu_torch.ops import kcover as kc
+    from gsplatloc_tpu_torch.ops import rasterize_tiles as rt
     from gsplatloc_tpu_torch.ops.fused_tracking import cam_vector
 
     kernels.reset_launch_counts()
@@ -183,10 +190,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     sin = torch.zeros((4, m_out))
     mom = fs.subtile_bwd(p8, sin, meta, n_ty, n_tx)
     fs.subtile_chain(slot, mom, cam, meta, n_tx)
+    rec = torch.zeros((16, 256))
+    rmeta = torch.zeros((3,), dtype=torch.int32)
+    out, cd = rt.rasterize_fwd(rec, rmeta, n_ty, n_tx)
+    rt.rasterize_bwd(rec, rmeta, cd, torch.cat([out, out]), n_ty, n_tx)
     counts = kernels.launch_counts()
     assert set(counts) == {"kcover_step_fwd", "kcover_step_bwd",
                            "kcover_select_records", "project8",
-                           "subtile_fwd", "subtile_bwd", "subtile_chain"}
+                           "subtile_fwd", "subtile_bwd", "subtile_chain",
+                           "rasterize_fwd", "rasterize_bwd"}
     assert all(v == 0 for v in counts.values()), counts
     assert kernels._lib is None  # nothing was built or loaded
 
@@ -228,6 +240,31 @@ def test_subtile_backward_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         kernels.require(torch.zeros((8, 256)).T.contiguous().T, "mom",
                         (8, 256))
+
+
+def test_rasterize_wrappers_check_before_they_launch():
+    """The general rasterizer's wrappers take the plain version only for a
+    CPU tensor; on a CUDA tensor they check the records, meta, chunks-done
+    and pixel-row arrays, launch their kernel and count it — no fallback."""
+    import inspect
+
+    from gsplatloc_tpu_torch.ops import rasterize_tiles as rt
+
+    for fn, needed in ((rt.rasterize_fwd, ('"records"', '"meta"')),
+                       (rt.rasterize_bwd, ('"records"', '"meta"',
+                                           '"chunks_done"', '"px_in"'))):
+        src = inspect.getsource(fn)
+        assert "if not records.is_cuda" in src
+        for name in needed:
+            assert name in src, (fn.__name__, name)
+        assert "try:" not in src
+        assert f"{fn.__name__}.launches += 1" in src
+        assert f"lib.gsl_{fn.__name__}(" in src
+    # the autograd path reaches the wrappers, not the plain versions
+    for cls in (rt._CompositeTiles,):
+        src = inspect.getsource(cls)
+        assert "rasterize_fwd(" in src and "rasterize_bwd(" in src
+        assert "_plain" not in src
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

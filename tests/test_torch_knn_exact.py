@@ -112,8 +112,8 @@ def test_parser_exact_knn_cache_fills_once_per_frame(monkeypatch):
         return real(points, k)
 
     monkeypatch.setattr(tknn, "exact_knn_sq_dists", counting)
-    p = tparser.Parser("Synthetic", "", knn_method="exact", device="cpu",
-                       n_frames=5, height=16, width=24)
+    p = tparser.Parser("Synthetic", "", knn_method="exact", backend="subtile",
+                       device="cpu", n_frames=5, height=16, width=24)
     for i in range(len(p)):
         p.knn_for_frame(i)
         data = p[i]

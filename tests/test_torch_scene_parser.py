@@ -263,13 +263,13 @@ def test_render_depth_gt_refuses_unported_backends(pair):
     _oj, out_t, args, (h, w) = pair
     with pytest.raises(NotImplementedError):
         tparser.render_depth_gt(out_t["src_points"], out_t["colors"], args[6],
-                                out_t["tar_c2w"], h, w, backend="pallas",
+                                out_t["tar_c2w"], h, w, backend="fused",
                                 device="cpu")
 
 
 def test_parser_pairs_and_frame_cache():
-    p = tparser.Parser("Synthetic", "boxroom", device="cpu", n_frames=5,
-                       height=32, width=64)
+    p = tparser.Parser("Synthetic", "boxroom", backend="subtile",
+                       device="cpu", n_frames=5, height=32, width=64)
     assert len(p) == 4
     data = p[0]
     assert data.tar_nums == 32 * 64

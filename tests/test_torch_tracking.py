@@ -183,8 +183,16 @@ def _unported(name, pair):
                              pair["depth_gt"], pair["K"], W, H,
                              device="cpu", **args)
 
+    def pallas_mesh():
+        from gsplatloc_tpu_torch.ops.rasterize import rasterize
+
+        s = pair["scene_t"]
+        rasterize(s.means, s.quats, s.scales, s.opacities, s.sh_coeffs,
+                  torch.eye(4), torch.as_tensor(pair["K"]), W, H,
+                  backend="pallas", mesh=object())
+
     return {
-        "pallas": lambda: opt(backend="pallas"),
+        "pallas": pallas_mesh,
         "subtile_false": lambda: opt(config=TrackingConfig(subtile=False)),
         "cli_icp": lambda: cli.main(["icp", "--dataset", "Synthetic"]),
         "cli_render": lambda: cli.main(["render", "--dataset", "Synthetic"]),
@@ -197,8 +205,9 @@ def _unported(name, pair):
 @pytest.mark.parametrize("name", ["pallas", "subtile_false", "cli_icp",
                                   "cli_render", "panel_every"])
 def test_unported_paths_raise(pair, name):
-    """The general rasterizer, the full-tile path, the baselines, the
-    render fly-through and the runner's panels are later slices."""
+    """The general rasterizer's multi-device mesh, the full-tile path, the
+    baselines, the render fly-through and the runner's panels are later
+    slices."""
     with pytest.raises(NotImplementedError, match="not ported|ported"):
         _unported(name, pair)()
 
