@@ -8,9 +8,11 @@ Phases (each raises on failure; nothing carries on on the CPU):
   1. device  — card name and power limit (nvidia-smi), torch/CUDA versions.
   2. build   — first use compiles gsplatloc_tpu_torch/csrc/*.cu with nvcc.
   3. kernels — every hand-written kernel against its plain PyTorch version
-               on the card, at the shapes the main path gives it
-               (1200x680, 816,000 splats, K=16), with CUDA-event timings
-               and the least time the card could take for the same work.
+               on the card, at the shapes its path gives it (1200x680,
+               816,000 splats, K=16; the full-tile kernels through a slot
+               buffer built at the pair's displaced pose), with CUDA-event
+               timings and the least time the card could take for the same
+               work.
   4. main    — one displaced synthetic RGB-D frame pair prepared
                (_assemble_pair) and pose-tracked (optimize_pose, default
                K-cover configuration, max_steps=300), run twice; launch
@@ -21,9 +23,9 @@ Phases (each raises on failure; nothing carries on on the CPU):
   6. track   — the entry point a user types, in process:
                `cli track --dataset Synthetic` on 4 frames at 1200x680 with
                exact kNN, once with the default --kcover 16, once with
-               --kcover 0, and the --kcover 16 run again with --no-prefetch
-               (its per-pair errors must equal the prefetched run's bit for
-               bit); each run writes res.json into a temporary directory.
+               --kcover 0, and both again with --no-prefetch (their per-pair
+               errors must equal the prefetched runs' bit for bit); each
+               run writes res.json into a temporary directory.
   7. general — the general rasterizer (backend "pallas", kernels K6a/K6b):
                (a) general_parity on the card against the dense oracle
                (64x128, 300 anisotropic splats, RGB+ED, gradients to every
@@ -33,6 +35,14 @@ Phases (each raises on failure; nothing carries on on the CPU):
                twice, launch counters zeroed before each run and read
                after; (c) `cli track --backend pallas` on 4 Synthetic
                frames at 1200x680, 300 iterations, exact kNN.
+  8. fulltile — the full-tile fused path (TrackingConfig(subtile=False),
+               kernels K7a/K7b, and K7c with compact=True): the phase-4 pair
+               with its depth target from render_depth_gt(backend="fused")
+               tracked twice with compact off and twice with it on, launch
+               counters zeroed before each run and read after; then
+               SequenceRunner with that configuration on 4 Synthetic frames
+               at 1200x680, 300 iterations, exact kNN, with and without the
+               prefetch worker (per-pair errors bit-equal).
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
@@ -57,6 +67,7 @@ from gsplatloc_tpu_torch.data.parser import _assemble_pair
 from gsplatloc_tpu_torch.data.synthetic import box_room_frame
 from gsplatloc_tpu_torch.models.gaussians import scene_from_point_cloud
 from gsplatloc_tpu_torch.ops import fused_subtile as fs
+from gsplatloc_tpu_torch.ops import fused_tracking as ft
 from gsplatloc_tpu_torch.ops import kcover as kc
 from gsplatloc_tpu_torch.ops import rasterize_tiles as rt
 from gsplatloc_tpu_torch.ops.binning import TILE_H, TILE_W
@@ -104,6 +115,19 @@ OPS_RAST_FWD_HIT = 14
 # d_sigma 2, the 10 per-pixel products and sums 23 (the per-slot warp
 # shuffles and the fixed-order warp sum are not counted)
 OPS_RAST_BWD_HIT = 49
+# full-tile path (csrc/fused_tracking.cu): every walked slot is projected
+# once per walk (project_parts + the ok gate and the opacity fold, 70);
+# per (slot, pixel) pair inside the gate footprints OPS_RAST_EVAL; per pair
+# that passes the gates: forward 1-alpha, T*, the live test, T*alpha,
+# select, qz*w + acc, the alpha sum (8); probe 1-alpha, T* and the mark
+# (3); backward 1-alpha, T*, live, w 2, phi 2, run 2, suffix, fmax, divide,
+# T*phi, suffix*inv, subtract, gates 2, d_sigma 2, the 6 products and sums
+# 14 (34); per slot with a nonzero sum the pose chain again after its
+# projection
+OPS_FUSED_SLOT = OPS_PROJECT + 3
+OPS_FUSED_FWD_HIT = 8
+OPS_FUSED_PROBE_HIT = 3
+OPS_FUSED_BWD_HIT = 34
 
 TOL_FWD = 1e-5  # abs, depth_acc / alpha (f32 sum order over K)
 TOL_BWD_REL = 1e-4  # rel, 12 pose scalars (f32 sum order over ~14 M terms)
@@ -598,10 +622,160 @@ def check_rasterize(pair, dev):
     return entries
 
 
+def check_fused_tracking(pair, dev):
+    """K7a / K7b / K7c at the full-tile path's shapes: the tracking scene
+    (816,000 splats) binned into 16x128 tiles by build_slot_buffer at the
+    pair's displaced pose and rendered there (the state right after a
+    rebuild, where the probe's compaction is exact); the backward's
+    cotangents from the tracking loss of that render against the tar
+    frame's depth."""
+    from gsplatloc_tpu_torch.losses import tracking_loss
+
+    entries = []
+    K = torch.as_tensor(pair["K"], device=dev)
+    tar_c2w = torch.as_tensor(pair["tar_c2w"], device=dev)
+    pts = transform_points(
+        tar_c2w, depth_to_points(torch.as_tensor(pair["tar_depth"], device=dev), K))
+    rgb = torch.as_tensor(pair["tar_rgb"], device=dev).reshape(-1, 3) / 255.0
+    scene = scene_from_point_cloud(pts, rgb, grid_shape=(H, W), device=dev)
+    vm = invert_se3(torch.as_tensor(pair["src_c2w"], device=dev))
+    slot, meta, b = ft.build_slot_buffer(scene, vm, K, W, H, NEAR, FAR)
+    del scene, pts, rgb
+    n_ty, n_tx = b.n_tiles_y, b.n_tiles_x
+    m_pad = slot.shape[1]
+    cam = cam_vector(vm, K, W, H).contiguous()
+
+    out_k, cd_k = ft.fused_fwd(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, cd_p = ft._fused_fwd_plain(slot, meta, cam, n_ty, n_tx, NEAR, FAR,
+                                      stats=stats)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    err = float((out_k - out_p).abs().max())
+    bit_equal = torch.equal(out_k, out_p)
+    cd_equal = torch.equal(cd_k, cd_p)
+    walked = walked_slots(meta, cd_k)
+    # the projected rows at this camera, with the ok gate folded into the
+    # opacity, in the layout footprint_pairs reads
+    proj = ft._project8_rows(ft._project_slots(slot, cam), NEAR, FAR)
+    proj[6] = proj[6] * proj[7]
+    needed = footprint_pairs(proj, meta, cd_k, n_tx)
+    del proj, out_p
+    log(f"[kernels] fused_fwd: M={b.num_pairs} M_pad={m_pad} tiles="
+        f"{n_ty}x{n_tx} walked_slots={walked} walked_pairs={stats['pairs']} "
+        f"footprint_pairs={needed} hits={stats['hits']} max_abs_err="
+        f"{err:.3e} bit_equal={bit_equal} chunks_done_equal={cd_equal} "
+        f"(full size, no crop)")
+    if not (bit_equal and cd_equal):
+        raise RuntimeError("fused_fwd disagrees with its plain version: "
+                           f"err={err} chunks_done_equal={cd_equal}")
+    if needed < stats["hits"]:
+        raise RuntimeError(f"footprint count {needed} below the gate hits "
+                           f"{stats['hits']}")
+    ms = time_ms(lambda: ft.fused_fwd(slot, meta, cam, n_ty, n_tx, NEAR,
+                                      FAR), 20)
+    rec_bytes = walked * 5 * 4  # the five record rows a walk reads
+    small_bytes = 4 * (cd_k.numel() + meta.numel() + cam.numel())
+    entries.append(kernel_entry(
+        "fused_fwd", "gsplatloc_tpu_torch/csrc/fused_tracking.cu",
+        "gsplatloc_tpu/ops/fused_tracking.py:657", err, ms, pms,
+        bound(rec_bytes + out_k.numel() * 4 + small_bytes,
+              walked * OPS_FUSED_SLOT + needed * OPS_RAST_EVAL
+              + stats["hits"] * OPS_FUSED_FWD_HIT),
+        walked_slots=walked, walked_pairs=stats["pairs"],
+        footprint_pairs=needed, hits=stats["hits"]))
+
+    # cotangents of depth_acc and alpha from the tracking loss
+    d_acc = out_k[0].clone().requires_grad_(True)
+    alpha = out_k[1].clone().requires_grad_(True)
+    depth = (d_acc / alpha.clamp_min(1e-10))[:H, :W]
+    target = torch.as_tensor(pair["tar_depth"], device=dev)
+    g_d, g_a = torch.autograd.grad(tracking_loss(depth, target).total,
+                                   (d_acc, alpha))
+    px_in = torch.stack([out_k[0], out_k[1], g_d, g_a]).contiguous()
+    d_k = ft.fused_bwd(slot, meta, cam, cd_k, px_in, n_ty, n_tx, NEAR, FAR)
+    d_k2 = ft.fused_bwd(slot, meta, cam, cd_k, px_in, n_ty, n_tx, NEAR, FAR)
+    bstats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_p = ft._fused_bwd_plain(slot, meta, cam, cd_k, px_in, n_ty, n_tx, NEAR,
+                              FAR, stats=bstats)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    err = float((d_k - d_p).abs().max())
+    rel = err / float(d_p.abs().max())
+    repeat = torch.equal(d_k, d_k2)
+    log(f"[kernels] fused_bwd: chained_slots={bstats['chained']} "
+        f"max_abs_err={err:.3e} max_rel_err={rel:.3e} bitwise_repeatable="
+        f"{repeat} d={[float(f'{x:.6e}') for x in d_k.tolist()]}")
+    if not (rel <= TOL_BWD_REL and repeat):
+        raise RuntimeError(f"fused_bwd disagrees: rel {rel}, repeatable "
+                           f"{repeat}")
+    ms = time_ms(lambda: ft.fused_bwd(slot, meta, cam, cd_k, px_in, n_ty,
+                                      n_tx, NEAR, FAR), 10)
+    entries.append(kernel_entry(
+        "fused_bwd", "gsplatloc_tpu_torch/csrc/fused_tracking.cu",
+        "gsplatloc_tpu/ops/fused_tracking.py:691", err, ms, pms,
+        bound(rec_bytes + px_in.numel() * 4 + small_bytes + 12 * 4,
+              walked * OPS_FUSED_SLOT + needed * OPS_RAST_EVAL
+              + stats["hits"] * OPS_FUSED_BWD_HIT
+              + bstats["chained"] * OPS_CHAIN),
+        max_rel_err=rel, chained_slots=bstats["chained"]))
+
+    c_k, pcd_k = ft.fused_probe(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_p, pcd_p = ft._fused_probe_plain(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    err = float((c_k - c_p).abs().max())
+    equal = torch.equal(c_k, c_p) and torch.equal(pcd_k, pcd_p)
+    cd_same = torch.equal(pcd_k, cd_k)
+    slot_c, meta_c = ft.compact_slot_buffer(slot, meta, c_k, pcd_k)
+    kept, total = int(meta_c[-1] - meta_c[1]), int(meta[-1] - meta[1])
+    out_c, cd_c = ft.fused_fwd(slot_c, meta_c, cam, n_ty, n_tx, NEAR, FAR)
+    exact = torch.equal(out_c, out_k)
+    log(f"[kernels] fused_probe: contrib_equal={torch.equal(c_k, c_p)} "
+        f"chunks_done_equal={torch.equal(pcd_k, pcd_p)} same_walk_as_"
+        f"fused_fwd={cd_same} kept {kept} of {total} slots; compacted "
+        f"fused_fwd bit-equal at the probe pose: {exact} (chunks walked "
+        f"{int(cd_c.sum())} of {int(cd_k.sum())})")
+    if not (equal and cd_same and exact):
+        raise RuntimeError(f"fused_probe disagrees: equal {equal}, same walk "
+                           f"{cd_same}, compaction exact {exact}")
+    ms = time_ms(lambda: ft.fused_probe(slot, meta, cam, n_ty, n_tx, NEAR,
+                                        FAR), 20)
+    # K7a and K7b on the compacted buffer, as the tracking loop runs them
+    # between rebuilds with compaction on; the compacted forward equals the
+    # uncompacted one, so px_in holds for it too
+    c_fwd_ms = time_ms(lambda: ft.fused_fwd(slot_c, meta_c, cam, n_ty, n_tx,
+                                            NEAR, FAR), 20)
+    c_bwd_ms = time_ms(lambda: ft.fused_bwd(slot_c, meta_c, cam, cd_c, px_in,
+                                            n_ty, n_tx, NEAR, FAR), 10)
+    log(f"[kernels] on the compacted buffer: fused_fwd {c_fwd_ms:.4f} ms, "
+        f"fused_bwd {c_bwd_ms:.4f} ms")
+    entries.append(kernel_entry(
+        "fused_probe", "gsplatloc_tpu_torch/csrc/fused_tracking.cu",
+        "gsplatloc_tpu/ops/fused_tracking.py:578", err, ms, pms,
+        bound(rec_bytes + m_pad * 4 + small_bytes,
+              walked * OPS_FUSED_SLOT + needed * OPS_RAST_EVAL
+              + stats["hits"] * OPS_FUSED_PROBE_HIT),
+        kept_slots=kept, total_slots=total,
+        compacted_fused_fwd_ms=c_fwd_ms, compacted_fused_bwd_ms=c_bwd_ms))
+    return entries
+
+
 def run_main_path(pair, dev, config, backend="fused"):
-    """Phases 4, 5 and 7: prepare -> scene -> optimize, through the entry
-    points. The depth target is rendered by the tracking backend's own
-    kernel family (the sub-tile walk for "fused")."""
+    """Phases 4, 5, 7 and 8: prepare -> scene -> optimize, through the
+    entry points. The depth target is rendered by the tracking path's own
+    kernel family, as the runner chooses it (the sub-tile walk for the
+    K-cover and sub-tile paths, the full-tile walk for subtile=False)."""
+    if backend == "fused":
+        parser_backend = "subtile" if config.subtile else "fused"
+    else:
+        parser_backend = backend
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -609,8 +783,7 @@ def run_main_path(pair, dev, config, backend="fused"):
     out = _assemble_pair(
         pair["tar_rgb"], pair["tar_depth"], pair["tar_c2w"],
         pair["src_rgb"], pair["src_depth"], pair["src_c2w"], pair["K"],
-        height=H, width=W, normalize=True,
-        backend="subtile" if backend == "fused" else backend)
+        height=H, width=W, normalize=True, backend=parser_backend)
     scene = scene_from_point_cloud(out["tar_points"], out["colors"],
                                    grid_shape=(H, W))
     torch.cuda.synchronize()
@@ -629,9 +802,9 @@ def run_main_path(pair, dev, config, backend="fused"):
 
 
 def tracked_pair(pair, dev, config, tag, backend="fused"):
-    """Phases 4/5/7: the pair tracked twice with `config`; checks recovery
-    (eT and eR down 10x), finite results, the second run bit-equal to the
-    first. Returns the first run's launch counts."""
+    """Phases 4/5/7/8: the pair tracked twice with `config`; checks
+    recovery (eT and eR down 10x), finite results, the second run bit-equal
+    to the first. Returns the first run's launch counts and its result."""
     runs = [run_main_path(pair, dev, config, backend) for _ in range(2)]
     r = runs[0]
     res, out = r["res"], r["out"]
@@ -639,9 +812,11 @@ def tracked_pair(pair, dev, config, tag, backend="fused"):
     e_t, e_r = pose_errors(res.best_pose.to_c2w(), out["src_c2w"])
     counts = r["counts"]
     step_kernel = ("rasterize_bwd" if backend != "fused" else
+                   "fused_bwd" if not config.subtile else
                    "kcover_step_fwd" if config.kcover > 0 else "subtile_bwd")
     launched = counts[step_kernel]
-    log(f"[{tag}] backend {backend} config kcover={config.kcover} "
+    log(f"[{tag}] backend {backend} config subtile={config.subtile} "
+        f"kcover={config.kcover} compact={config.compact} "
         f"max_steps={config.max_steps}")
     log(f"[{tag}] init  eT {e_t0 * 100:.4f} cm  eR {e_r0:.4f} deg")
     log(f"[{tag}] best  eT {e_t * 100:.4f} cm  eR {e_r:.4f} deg  "
@@ -678,6 +853,44 @@ def tracked_pair(pair, dev, config, tag, backend="fused"):
     log(f"[{tag}] second run bit-equal to the first: {same}")
     if not same:
         raise RuntimeError("second run differs from the first")
+    return counts, res
+
+
+def fulltile_pair(pair, dev, compact):
+    """Phase 8a/8b: the pair tracked twice through the full-tile path
+    (subtile=False; kcover does not apply there). Every step launches K7a
+    and K7b once, the depth target K7a once more; with compaction every
+    rebuild (and the initial build) launches K7c once, and the slots kept
+    after each compaction are reported. No other kernel runs."""
+    kept = []
+    compact_fn = ft.compact_slot_buffer
+
+    def recording_compact(slot3d, meta, contrib, chunks_done):
+        out = compact_fn(slot3d, meta, contrib, chunks_done)
+        kept.append((out[1][-1] - out[1][1], meta[-1] - meta[1]))
+        return out
+
+    cfg = TrackingConfig(max_steps=300, subtile=False, compact=compact)
+    tag = "fulltile_compact" if compact else "fulltile"
+    ft.compact_slot_buffer = recording_compact
+    try:
+        counts, res = tracked_pair(pair, dev, cfg, tag)
+    finally:
+        ft.compact_slot_buffer = compact_fn
+    # tracked_pair ran the pair twice: the first run's compactions
+    first = [(int(a), int(b)) for a, b in kept[:len(kept) // 2]]
+    log(f"[{tag}] kept/total slots after each compaction: {first}")
+    steps = counts["fused_bwd"]
+    probes = counts["fused_probe"]
+    want_probes = res.rebuilds + 1 if compact else 0
+    others = {k: v for k, v in counts.items()
+              if k not in ("fused_fwd", "fused_bwd", "fused_probe") and v}
+    if not (steps >= 1 and counts["fused_fwd"] == steps + 1
+            and probes == want_probes and len(first) == want_probes
+            and not others):
+        raise RuntimeError(f"full-tile path launch counts: {counts} "
+                           f"(rebuilds {res.rebuilds}, compactions "
+                           f"{len(first)})")
     return counts
 
 
@@ -697,10 +910,71 @@ TRACK_RUNS = (
     ("kcover0", ["--kcover", "0"], ("project8", "subtile_fwd", "subtile_bwd",
                                     "subtile_chain")),
     ("kcover16_serial", ["--no-prefetch"], ()),
+    ("kcover0_serial", ["--kcover", "0", "--no-prefetch"], ()),
 )
 TRACK_RUNS_GENERAL = (
     ("pallas", ["--backend", "pallas"], ("rasterize_fwd", "rasterize_bwd")),
 )
+
+
+def check_serial_equal(tag, prefetched, serial):
+    same = prefetched == serial
+    log(f"[track:{tag}] serial (no prefetch) per-pair eT bit-equal to the "
+        f"prefetched run: {same}")
+    if not same:
+        raise RuntimeError(f"{tag}: prefetched and serial runs differ: "
+                           f"{prefetched} vs {serial}")
+
+
+def run_sequence_fulltile():
+    """Phase 8c: SequenceRunner on the full-tile path (the CLI exposes no
+    `subtile` flag, as the reference's does not) on a generated 4-frame
+    Synthetic sequence at 1200x680, 300 iterations, exact kNN, with and
+    without the prefetch worker. Returns the prefetched run's launch
+    counts."""
+    from gsplatloc_tpu_torch.tracking.runner import SequenceRunner
+
+    cfg = TrackingConfig(max_steps=300, subtile=False)
+    root = Path(tempfile.mkdtemp(prefix="gsl_seq_"))
+    results, counts = {}, {}
+    try:
+        for tag, prefetch in (("fulltile", True), ("fulltile_serial", False)):
+            runner = SequenceRunner(
+                "Synthetic", "", config=cfg, backend="fused",
+                run_dir=root / tag, n_frames=4, height=H, width=W, seed=42)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = runner.train(progress=False, prefetch=prefetch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts[tag] = kernels.launch_counts()
+            pairs, summary, rcfg = _read_run(root / tag)
+            log(f"[seq:{tag}] parser backend {runner.parser.backend} "
+                f"knn_method {rcfg['knn_method']} ATE-RMSE "
+                f"{res.ate_rmse * 100:.5f} cm AAE-RMSE {res.aae_rmse:.5f} deg;"
+                f" eT/pair [cm] {[round(x * 100, 5) for x in res.eT]} eR/pair"
+                f" [deg] {[round(x, 5) for x in res.eR]} steps "
+                f"{[int(p['steps']) for p in pairs]} rebuilds "
+                f"{[int(p['rebuilds']) for p in pairs]}")
+            log(f"[seq:{tag}] wall {wall:.2f} s = {wall / 3:.2f} s per pair; "
+                f"stage_s {json.dumps(summary['stage_s'])}")
+            log(f"[seq:{tag}] launches {json.dumps(counts[tag])}")
+            if (len(res.eT) != 3 or rcfg["knn_method"] != "exact"
+                    or not all(np.isfinite(res.eT + res.eR))):
+                raise RuntimeError(f"sequence {tag}: {len(res.eT)} pairs, "
+                                   f"knn {rcfg['knn_method']}, eT {res.eT}")
+            path = {"fused_fwd", "fused_bwd"}
+            if (not all(counts[tag][k] >= 1 for k in path)
+                    or any(v for k, v in counts[tag].items()
+                           if k not in path)):
+                raise RuntimeError(f"sequence {tag} launch counts: "
+                                   f"{counts[tag]}")
+            results[tag] = res.eT
+        check_serial_equal("fulltile", results["fulltile"],
+                           results["fulltile_serial"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts["fulltile"]
 
 
 def run_track_cli(runs):
@@ -756,12 +1030,10 @@ def run_track_cli(runs):
                     raise RuntimeError(f"track {tag} never launched {name}")
             results[tag] = e_t
             all_counts[tag] = counts
-        if "kcover16_serial" in results:
-            same = results["kcover16"] == results["kcover16_serial"]
-            log(f"[track] --no-prefetch per-pair eT bit-equal to the "
-                f"prefetched run: {same}")
-            if not same:
-                raise RuntimeError("prefetched and serial track runs differ")
+        for tag in results:
+            if tag.endswith("_serial"):
+                base = tag[:-len("_serial")]
+                check_serial_equal(base, results[base], results[tag])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return all_counts
@@ -796,9 +1068,11 @@ def main():
     torch.cuda.empty_cache()
     entries += check_rasterize(pair, dev)
     torch.cuda.empty_cache()
+    entries += check_fused_tracking(pair, dev)
+    torch.cuda.empty_cache()
 
     # 4. main path (K-cover, the product default), twice
-    counts4 = tracked_pair(pair, dev, TrackingConfig(max_steps=300), "main")
+    counts4, _ = tracked_pair(pair, dev, TrackingConfig(max_steps=300), "main")
     for name in ("kcover_step_fwd", "kcover_step_bwd",
                  "kcover_select_records", "project8", "subtile_fwd"):
         if counts4[name] < 1:
@@ -808,7 +1082,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. the sub-tile path (kcover=0), twice
-    counts5 = tracked_pair(pair, dev, TrackingConfig(max_steps=300, kcover=0),
+    counts5, _ = tracked_pair(pair, dev, TrackingConfig(max_steps=300, kcover=0),
                            "subtile")
     for name in ("project8", "subtile_fwd", "subtile_bwd", "subtile_chain"):
         if counts5[name] < 1:
@@ -836,7 +1110,7 @@ def main():
         f" ({time.perf_counter() - t0:.1f} s)")
     if not par["ok"]:
         raise RuntimeError(f"general_parity failed on the card: {par}")
-    counts7 = tracked_pair(pair, dev, TrackingConfig(max_steps=300),
+    counts7, _ = tracked_pair(pair, dev, TrackingConfig(max_steps=300),
                            "general", backend="pallas")
     # every step renders forward and backward; the forward runs once more
     # for the pair's depth target
@@ -850,16 +1124,30 @@ def main():
                            f"{others}")
     torch.cuda.empty_cache()
     run_track_cli(TRACK_RUNS_GENERAL)
+    torch.cuda.empty_cache()
+
+    # 8. the full-tile path, without and with compaction
+    counts8 = {}
+    for compact in (False, True):
+        counts8[compact] = fulltile_pair(pair, dev, compact)
+        torch.cuda.empty_cache()
+    run_sequence_fulltile()
 
     counts = dict(counts4, subtile_bwd=counts5["subtile_bwd"],
                   subtile_chain=counts5["subtile_chain"],
                   rasterize_fwd=counts7["rasterize_fwd"],
-                  rasterize_bwd=counts7["rasterize_bwd"])
+                  rasterize_bwd=counts7["rasterize_bwd"],
+                  fused_fwd=counts8[False]["fused_fwd"],
+                  fused_bwd=counts8[False]["fused_bwd"],
+                  fused_probe=counts8[True]["fused_probe"])
     for e in entries:
         # launches on the path that runs the kernel: K-cover (phase 4) for
         # K1-K4, sub-tile (phase 5) for the sub-tile backward, general
-        # (phase 7b) for K6a/K6b
+        # (phase 7b) for K6a/K6b, full-tile (phase 8) for K7a/K7b and,
+        # with compaction, K7c
         e["launches"] = counts[e["name"]]
+    if len(entries) != 12:
+        raise RuntimeError(f"{len(entries)} kernels checked, not 12")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"kernels": entries}))

@@ -46,15 +46,11 @@ def render_depth_gt(
 
     backend "pallas" / "reference": the general rasterizer (the tiled
     hand-written kernels / the dense oracle) in ED mode. backend "subtile"
-    renders through the sub-tile forward walk — the same kernel family as
-    the fused tracking render, so representation artifacts cancel in the
-    loss — with exact big-splat binning. The full-tile "fused" render is
-    not ported yet."""
-    if backend == "fused":
-        raise NotImplementedError(
-            "render_depth_gt(backend='fused'): the full-tile render "
-            "(ops/fused_tracking.py) is not ported yet (ROADMAP item 14)")
-    if backend not in ("subtile", "pallas", "reference"):
+    / "fused" render through the sub-tile / full-tile forward walk — the
+    same kernel family as the fused tracking render of that path, so
+    representation artifacts cancel in the loss — with exact big-splat
+    binning."""
+    if backend not in ("fused", "subtile", "pallas", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
     with torch.no_grad():
@@ -62,7 +58,7 @@ def render_depth_gt(
                                        knn_sq_dists=knn_sq_dists, device=dev)
         K = as_f32(K, dev)
         vm = invert_se3(as_f32(c2w, dev))
-        if backend != "subtile":
+        if backend in ("pallas", "reference"):
             from ..ops.rasterize import rasterize
 
             render, _alpha = rasterize(
@@ -70,15 +66,18 @@ def render_depth_gt(
                 scene.sh_coeffs, vm, K, width, height, sh_degree=1,
                 render_mode="ED", backend=backend)
             return render[..., 0]
-        from ..ops.fused_subtile import (
-            build_subtile_slot_buffer,
-            render_tracking_depth_subtile,
-        )
-
-        slot, meta, _ = build_subtile_slot_buffer(
-            scene, vm, K, width, height, 1e-2, 1e10)
-        depth, _alpha = render_tracking_depth_subtile(
-            vm, K, width, height, slot, meta)
+        if backend == "fused":
+            from ..ops.fused_tracking import (
+                build_slot_buffer as build_fn,
+                render_tracking_depth as render_fn,
+            )
+        else:
+            from ..ops.fused_subtile import (
+                build_subtile_slot_buffer as build_fn,
+                render_tracking_depth_subtile as render_fn,
+            )
+        slot, meta, _ = build_fn(scene, vm, K, width, height, 1e-2, 1e10)
+        depth, _alpha = render_fn(vm, K, width, height, slot, meta)
     return depth
 
 

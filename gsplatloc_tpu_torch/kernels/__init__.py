@@ -50,6 +50,9 @@ _SIGNATURES = {
     "gsl_subtile_chain": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
     "gsl_rasterize_fwd": [_P, _P, _P, _P, _I, _I, _L, _P],
     "gsl_rasterize_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
+    "gsl_fused_fwd": [_P, _P, _P, _P, _P, _I, _I, _L, _F, _F, _P],
+    "gsl_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _F, _F, _P],
+    "gsl_fused_probe": [_P, _P, _P, _P, _P, _I, _I, _L, _F, _F, _P],
 }
 
 REDUCE_THREADS = 256  # block size of the pose-partial reductions (reduce.cuh)
@@ -174,7 +177,7 @@ def require_cam(cam, device) -> None:
 
 
 def _wrappers():
-    from ..ops import fused_subtile, kcover, rasterize_tiles
+    from ..ops import fused_subtile, fused_tracking, kcover, rasterize_tiles
 
     return {
         "kcover_step_fwd": kcover.kcover_step_fwd,
@@ -186,6 +189,9 @@ def _wrappers():
         "subtile_chain": fused_subtile.subtile_chain,
         "rasterize_fwd": rasterize_tiles.rasterize_fwd,
         "rasterize_bwd": rasterize_tiles.rasterize_bwd,
+        "fused_fwd": fused_tracking.fused_fwd,
+        "fused_bwd": fused_tracking.fused_bwd,
+        "fused_probe": fused_tracking.fused_probe,
     }
 
 

@@ -11,12 +11,19 @@ stop. Semantics:
   * best tracking starts after step 100; patience 200 on best TOTAL loss;
     the best (lowest-loss) pose is the pair's estimate.
 
-Two render paths of the fused backend (both subtile=True):
+Three render paths of the fused backend:
 
-  * kcover > 0 (the product default): the K-cover render over per-pixel
-    cover records, re-selected by a select gate checked every step;
-  * kcover = 0: the sub-tile render walking the depth-sorted slot buffer
-    itself (ops/fused_subtile.py); only the rebuild gate exists.
+  * subtile=True, kcover > 0 (the product default): the K-cover render
+    over per-pixel cover records, re-selected by a select gate checked
+    every step;
+  * subtile=True, kcover = 0: the sub-tile render walking the depth-sorted
+    slot buffer itself (ops/fused_subtile.py); only the rebuild gate
+    exists;
+  * subtile=False (kcover does not apply): the full-tile render walking
+    (16, 128) tiles of the slot buffer with in-kernel projection
+    (ops/fused_tracking.py); with compact=True each rebuild probes the
+    fresh buffer at the rebuild pose and drops the slots that reach no
+    live pixel there. Only the rebuild gate exists.
 
 and the general rasterizer (backend "pallas": the tiled hand-written
 kernels of ops/rasterize_tiles.py; "reference": the dense oracle), which
@@ -69,7 +76,9 @@ class TrackingConfig(NamedTuple):
     # last rebuild exceeds this many pixels (conservative screen-motion
     # bound: fx * (|dt|/z_nearest + dtheta)). 0 = cadence only.
     resort_motion_px: float = 4.0
-    # full-tile path option of the reference (not ported yet)
+    # full-tile path (subtile=False): after each rebuild, probe the slot
+    # buffer at the rebuild pose and compact away the slots that reach no
+    # live pixel (exact there; the walks then cover fewer chunks)
     compact: bool = False
     # fused backend: the (16, 16) sub-tile pipeline (ops/fused_subtile.py)
     subtile: bool = True
@@ -186,26 +195,28 @@ def optimize_pose(
 ) -> PairResult:
     """Optimize the camera pose of one frame pair on `device`.
 
-    backend "fused" (subtile=True): config.kcover > 0 (the product default)
-    is the K-cover tracking path, config.kcover == 0 the sub-tile path.
+    backend "fused": with config.subtile, config.kcover > 0 (the product
+    default) is the K-cover tracking path and config.kcover == 0 the
+    sub-tile path; subtile=False is the full-tile path whatever kcover
+    says, with config.compact its probe + compaction at every rebuild.
     backend "pallas" / "reference": the general rasterizer (the tiled
     hand-written kernels / the dense oracle), rendered in RGB+ED mode with
-    config.sh_degree; PairResult.rebuilds == selects == 0. The full-tile
-    fused path (subtile=False) is not ported yet and raises."""
+    config.sh_degree; PairResult.rebuilds == selects == 0."""
     general = backend in ("pallas", "reference")
     if not general and backend != "fused":
         raise ValueError(f"unknown backend {backend!r}")
-    if not general and not config.subtile:
-        raise NotImplementedError(
-            "optimize_pose(backend='fused', subtile=False): the full-tile "
-            "path (ops/fused_tracking.py render kernels) is not ported yet "
-            "(ROADMAP item 14)")
     from ..ops.binning import TILE_H, TILE_W
     from ..ops.fused_subtile import (
         build_subtile_slot_buffer,
         render_tracking_depth_subtile,
     )
-    from ..ops.fused_tracking import cam_vector
+    from ..ops.fused_tracking import (
+        build_slot_buffer,
+        cam_vector,
+        compact_slot_buffer,
+        fused_probe,
+        render_tracking_depth,
+    )
     from ..ops.kcover import (
         build_kcover_buffer,
         build_kcover_slot_buffer,
@@ -220,20 +231,30 @@ def optimize_pose(
     n_ty = -(-height // TILE_H)
     n_tx = -(-width // TILE_W)
     near, far = config.near_plane, config.far_plane
-    use_kcover = config.kcover > 0 and not general
+    use_subtile = config.subtile
+    use_kcover = config.kcover > 0 and use_subtile and not general
+    do_compact = config.compact and not use_subtile
 
     def make_slots(viewmat):
         """(slot3d, meta, z_min, overflow) at `viewmat`; overflow is only
         ever True on the K-cover path (live slots beyond the budget)."""
+        ovf = torch.zeros((), dtype=torch.bool, device=dev)
         if use_kcover:
             s3, m3, ovf = build_kcover_slot_buffer(
                 scene, viewmat, K, width, height, near, far,
                 slot_budget=config.slot_budget,
             )
-        else:
+        elif use_subtile:
             s3, m3, _ = build_subtile_slot_buffer(
                 scene, viewmat, K, width, height, near, far)
-            ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        else:
+            s3, m3, _ = build_slot_buffer(
+                scene, viewmat, K, width, height, near, far)
+            if do_compact:
+                contrib, cd = fused_probe(
+                    s3, m3, cam_vector(viewmat, K, width, height),
+                    n_ty, n_tx, near, far)
+                s3, m3 = compact_slot_buffer(s3, m3, contrib, cd)
         # nearest visible scene depth at the rebuild pose, for the motion
         # gate's parallax bound
         z = scene.means @ viewmat[:3, :3].T[:, 2] + viewmat[2, 3]
@@ -274,16 +295,19 @@ def optimize_pose(
                            config.coast_gate_factor, 1.0)
 
     def render_depth(viewmat, buf):
-        """buf: the K-cover records, (slot3d, meta) when kcover == 0, or
-        None on the general path."""
+        """buf: the K-cover records, (slot3d, meta) on the sub-tile and
+        full-tile paths, or None on the general path."""
         if general:
             return _render_general_depth(scene, viewmat, K, width, height,
                                          config, backend)
         if use_kcover:
             depth, _alpha = render_tracking_depth_kcover(
                 viewmat, K, width, height, buf, near, far)
-        else:
+        elif use_subtile:
             depth, _alpha = render_tracking_depth_subtile(
+                viewmat, K, width, height, buf[0], buf[1], near, far)
+        else:
+            depth, _alpha = render_tracking_depth(
                 viewmat, K, width, height, buf[0], buf[1], near, far)
         return depth
 

@@ -98,12 +98,8 @@ class SequenceRunner:
             parser_backend = backend
         elif backend != "fused":
             raise ValueError(f"unknown backend {backend!r}")
-        elif cfg.subtile:
-            parser_backend = "subtile"
         else:
-            raise NotImplementedError(
-                "SequenceRunner(backend='fused', subtile=False): the "
-                "full-tile path is not ported yet (ROADMAP item 14)")
+            parser_backend = "subtile" if cfg.subtile else "fused"
         self.device = resolve_device(device)
         # "auto" -> EXACT KdTree scale init (the grid-window approximation
         # inflates grazing depth-edge scales into image-wide opaque blobs);

@@ -61,8 +61,9 @@ def test_package_layout_mirrors_the_reference():
     assert (PKG / "ops" / "rasterize_tiles.py").exists()
     assert (ROOT / "gsplatloc_tpu" / "ops" / "rasterize_pallas.py").exists()
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "kcover_select.cu", "kcover_step.cu", "rasterize_bwd.cu",
-        "rasterize_fwd.cu", "subtile_bwd.cu", "subtile_fwd.cu"]
+        "fused_tracking.cu", "kcover_select.cu", "kcover_step.cu",
+        "rasterize_bwd.cu", "rasterize_fwd.cu", "subtile_bwd.cu",
+        "subtile_fwd.cu"]
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
         "project.cuh", "rasterize.cuh", "reduce.cuh"]
     # the port builds its own copy of the kNN sources, never the reference's
@@ -84,6 +85,7 @@ def test_import_needs_no_cuda_and_builds_nothing():
         "import gsplatloc_tpu_torch as g\n"
         "from gsplatloc_tpu_torch import kernels, convert, losses\n"
         "from gsplatloc_tpu_torch.ops import kcover, fused_subtile, knn, pca\n"
+        "from gsplatloc_tpu_torch.ops import fused_tracking\n"
         "from gsplatloc_tpu_torch.ops import rasterize, rasterize_tiles\n"
         "from gsplatloc_tpu_torch.ops import rasterize_ref, parity, sh\n"
         "from gsplatloc_tpu_torch.opt import tracking\n"
@@ -172,6 +174,7 @@ def test_tracking_config_defaults_equal_the_reference():
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     from gsplatloc_tpu_torch.ops import fused_subtile as fs
     from gsplatloc_tpu_torch.ops import kcover as kc
+    from gsplatloc_tpu_torch.ops import fused_tracking as ft
     from gsplatloc_tpu_torch.ops import rasterize_tiles as rt
     from gsplatloc_tpu_torch.ops.fused_tracking import cam_vector
 
@@ -194,11 +197,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     rmeta = torch.zeros((3,), dtype=torch.int32)
     out, cd = rt.rasterize_fwd(rec, rmeta, n_ty, n_tx)
     rt.rasterize_bwd(rec, rmeta, cd, torch.cat([out, out]), n_ty, n_tx)
+    iso = torch.zeros((8, 256))
+    out2, cd2 = ft.fused_fwd(iso, rmeta, cam, n_ty, n_tx, 1e-2, 1e10)
+    ft.fused_bwd(iso, rmeta, cam, cd2, torch.cat([out2, out2]), n_ty, n_tx,
+                 1e-2, 1e10)
+    ft.fused_probe(iso, rmeta, cam, n_ty, n_tx, 1e-2, 1e10)
     counts = kernels.launch_counts()
     assert set(counts) == {"kcover_step_fwd", "kcover_step_bwd",
                            "kcover_select_records", "project8",
                            "subtile_fwd", "subtile_bwd", "subtile_chain",
-                           "rasterize_fwd", "rasterize_bwd"}
+                           "rasterize_fwd", "rasterize_bwd", "fused_fwd",
+                           "fused_bwd", "fused_probe"}
     assert all(v == 0 for v in counts.values()), counts
     assert kernels._lib is None  # nothing was built or loaded
 
@@ -265,6 +274,32 @@ def test_rasterize_wrappers_check_before_they_launch():
         src = inspect.getsource(cls)
         assert "rasterize_fwd(" in src and "rasterize_bwd(" in src
         assert "_plain" not in src
+
+
+def test_fused_tracking_wrappers_check_before_they_launch():
+    """The full-tile path's wrappers take the plain version only for a CPU
+    tensor; on a CUDA tensor they check the slot buffer, meta, camera and
+    (backward) chunks-done and pixel-row arrays, launch their kernel and
+    count it — no fallback; the autograd render reaches the wrappers."""
+    import inspect
+
+    from gsplatloc_tpu_torch.ops import fused_tracking as ft
+
+    for fn, needed in ((ft.fused_fwd, ('"slot3d"', '"meta"', "require_cam")),
+                       (ft.fused_bwd, ('"slot3d"', '"meta"', "require_cam",
+                                       '"chunks_done"', '"px_in"')),
+                       (ft.fused_probe, ('"slot3d"', '"meta"',
+                                         "require_cam"))):
+        src = inspect.getsource(fn)
+        assert "if not slot3d.is_cuda" in src
+        for name in needed:
+            assert name in src, (fn.__name__, name)
+        assert "try:" not in src
+        assert f"{fn.__name__}.launches += 1" in src
+        assert f"lib.gsl_{fn.__name__}(" in src
+    src = inspect.getsource(ft._FusedRender)
+    assert "fused_fwd(" in src and "fused_bwd(" in src
+    assert "_plain" not in src
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

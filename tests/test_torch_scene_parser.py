@@ -260,10 +260,12 @@ def test_assemble_pair_without_normalization_passes_depth_through(pair):
 
 
 def test_render_depth_gt_refuses_unported_backends(pair):
+    """Every backend of the reference is ported ("fused" last); a backend
+    the reference does not have is refused."""
     _oj, out_t, args, (h, w) = pair
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="backend"):
         tparser.render_depth_gt(out_t["src_points"], out_t["colors"], args[6],
-                                out_t["tar_c2w"], h, w, backend="fused",
+                                out_t["tar_c2w"], h, w, backend="gsplat",
                                 device="cpu")
 
 

@@ -191,25 +191,80 @@ def _unported(name, pair):
                   torch.eye(4), torch.as_tensor(pair["K"]), W, H,
                   backend="pallas", mesh=object())
 
+    def fulltile_mesh():
+        from gsplatloc_tpu_torch.ops.fused_tracking import (
+            build_slot_buffer, render_tracking_depth,
+        )
+
+        K = torch.as_tensor(pair["K"])
+        slot, meta, _ = build_slot_buffer(pair["scene_t"], torch.eye(4), K,
+                                          W, H, 1e-2, 1e10)
+        render_tracking_depth(torch.eye(4), K, W, H, slot, meta,
+                              mesh=object())
+
     return {
         "pallas": pallas_mesh,
-        "subtile_false": lambda: opt(config=TrackingConfig(subtile=False)),
+        "fulltile_mesh": fulltile_mesh,
         "cli_icp": lambda: cli.main(["icp", "--dataset", "Synthetic"]),
         "cli_render": lambda: cli.main(["render", "--dataset", "Synthetic"]),
+        "subtile_false": opt,
         "panel_every": lambda: SequenceRunner(
             "Synthetic", "", panel_every=1, device="cpu", knn_method="grid",
             n_frames=3, height=16, width=16),
     }[name]
 
 
-@pytest.mark.parametrize("name", ["pallas", "subtile_false", "cli_icp",
+@pytest.mark.parametrize("name", ["pallas", "fulltile_mesh", "cli_icp",
                                   "cli_render", "panel_every"])
 def test_unported_paths_raise(pair, name):
-    """The general rasterizer's multi-device mesh, the full-tile path, the
+    """The multi-device mesh of the general and the full-tile renders, the
     baselines, the render fly-through and the runner's panels are later
     slices."""
     with pytest.raises(NotImplementedError, match="not ported|ported"):
         _unported(name, pair)()
+
+
+def test_subtile_false_takes_the_fulltile_path(pair, monkeypatch):
+    """TrackingConfig(subtile=False) with the default kcover=16 takes the
+    full-tile path, as the reference's `kcover > 0 and subtile` rule says:
+    it builds the slot buffer with build_slot_buffer and renders with
+    render_tracking_depth, and never builds a K-cover buffer nor selects
+    (and on the CPU launches no kernel)."""
+    from gsplatloc_tpu_torch import kernels
+    from gsplatloc_tpu_torch.ops import fused_subtile, fused_tracking, kcover
+
+    calls = {"build_slot_buffer": 0, "render_tracking_depth": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    def refuse(*a, **k):
+        raise AssertionError("the full-tile path reached a K-cover or "
+                             "sub-tile function")
+
+    for name in calls:
+        monkeypatch.setattr(fused_tracking, name,
+                            counting(name, getattr(fused_tracking, name)))
+    for mod, name in ((kcover, "build_kcover_slot_buffer"),
+                      (kcover, "build_kcover_buffer"),
+                      (kcover, "select_kcover_records"),
+                      (kcover, "render_tracking_depth_kcover"),
+                      (fused_subtile, "build_subtile_slot_buffer"),
+                      (fused_subtile, "render_tracking_depth_subtile")):
+        monkeypatch.setattr(mod, name, refuse)
+    kernels.reset_launch_counts()
+    cfg = TrackingConfig(subtile=False, max_steps=4, warmup_steps=0,
+                         resort_every=2, resort_motion_px=0.0)
+    assert cfg.kcover == 16
+    res = _unported("subtile_false", pair)(config=cfg)
+    assert res.steps_run == 4 and res.selects == 0
+    assert res.rebuilds == 1 and calls["build_slot_buffer"] == 2
+    assert calls["render_tracking_depth"] == 4
+    assert bool(torch.isfinite(res.best_loss))
+    assert all(v == 0 for v in kernels.launch_counts().values())
 
 
 def test_state_conversion_round_trip(pair):

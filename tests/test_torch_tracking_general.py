@@ -215,28 +215,48 @@ def test_runner_and_cli_track_with_the_general_backend(tmp_path):
 
 @pytest.mark.parametrize("name", ["subtile_false", "parser_fused",
                                   "unknown_backend"])
-def test_paths_still_unported_or_unknown_raise(pair, name):
-    """The full-tile path (ROADMAP item 14) still raises, naming its item;
-    an unknown backend is a ValueError."""
+def test_fulltile_paths_run_and_an_unknown_backend_raises(pair, name,
+                                                          monkeypatch):
+    """The full-tile path runs on the CPU through its entry points:
+    optimize_pose(backend="fused", subtile=False) and
+    render_depth_gt(backend="fused") reach build_slot_buffer and
+    render_tracking_depth and give finite results; an unknown backend is
+    a ValueError."""
+    from gsplatloc_tpu_torch.ops import fused_tracking
+
+    calls = {"build_slot_buffer": 0, "render_tracking_depth": 0}
+    for fn_name in calls:
+        fn = getattr(fused_tracking, fn_name)
+
+        def wrapped(*a, _fn=fn, _name=fn_name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(fused_tracking, fn_name, wrapped)
+
     def opt(**kw):
         return optimize_pose(pair["scene_t"], np.eye(4, dtype=np.float32),
                              pair["depth_gt"], pair["K"], W, H,
                              device="cpu", **kw)
 
-    pts = np.random.default_rng(0).random((8, 3)).astype(np.float32)
-    calls = {
-        "subtile_false": (NotImplementedError, "item 14", lambda: opt(
-            config=TrackingConfig(subtile=False), backend="fused")),
-        "parser_fused": (NotImplementedError, "item 14",
-                         lambda: tparser.render_depth_gt(
-                             pts, pts, pair["K"], np.eye(4), 4, 4,
-                             backend="fused", device="cpu")),
-        "unknown_backend": (ValueError, "backend",
-                            lambda: opt(backend="gsplat")),
-    }
-    exc, match, fn = calls[name]
-    with pytest.raises(exc, match=match):
-        fn()
+    if name == "unknown_backend":
+        with pytest.raises(ValueError, match="backend"):
+            opt(backend="gsplat")
+        return
+    if name == "subtile_false":
+        res = opt(config=TrackingConfig(subtile=False, max_steps=3,
+                                         warmup_steps=0),
+                  backend="fused")
+        assert res.steps_run == 3 and res.selects == 0
+        assert bool(torch.isfinite(res.best_loss))
+    else:
+        pts = np.random.default_rng(0).random((16 * 16, 3)).astype(np.float32)
+        pts[:, 2] += 1.0
+        d = tparser.render_depth_gt(pts, pts, pair["K"], np.eye(4), 16, 16,
+                                    backend="fused", device="cpu")
+        assert tuple(d.shape) == (16, 16) and bool(torch.isfinite(d).all())
+    assert calls["build_slot_buffer"] >= 1
+    assert calls["render_tracking_depth"] >= 1
 
 
 def test_general_path_takes_the_plain_versions_on_the_cpu(pair):
