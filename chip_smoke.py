@@ -12,7 +12,9 @@ Phases (each raises on failure; nothing carries on on the CPU):
                816,000 splats, K=16; the full-tile kernels through a slot
                buffer built at the pair's displaced pose), with CUDA-event
                timings and the least time the card could take for the same
-               work.
+               work; the index select against its plain version and its
+               gathered records against the records select's, both at
+               K=16 and at K=12, bit for bit.
   4. main    — one displaced synthetic RGB-D frame pair prepared
                (_assemble_pair) and pose-tracked (optimize_pose, default
                K-cover configuration, max_steps=300), run twice; launch
@@ -43,6 +45,20 @@ Phases (each raises on failure; nothing carries on on the CPU):
                SequenceRunner with that configuration on 4 Synthetic frames
                at 1200x680, 300 iterations, exact kNN, with and without the
                prefetch worker (per-pair errors bit-equal).
+  9. kcover-any-K — the K-cover path at K=12, where K * 5 % 8 != 0 routes
+               every re-selection through project8 + the index select +
+               a row gather, as in the JAX package: (a) the phase-4 pair
+               tracked twice by optimize_pose(TrackingConfig(kcover=12)),
+               launch counters zeroed before each run and read after (the
+               records select never launches); (b) one re-selection timed
+               by each route at the phase-3 pose, K=12 and K=16; (c) the
+               parity gates on the card at their defaults (128x256):
+               subtile_parity and kcover_parity(k_cover=16) must pass,
+               kcover_parity(k_cover=12) must give the card the verdict and
+               the numbers its plain run on the CPU gives (it fails its
+               gate in both packages: K=12 truncates some cover lists of
+               that scene); (d) `cli track --dataset Synthetic --kcover 12`
+               on 4 frames at 1200x680, exact kNN.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
@@ -79,6 +95,8 @@ from gsplatloc_tpu_torch.opt.tracking import TrackingConfig, optimize_pose
 H, W = 680, 1200
 FX = 600.0
 K_COVER = 16
+# the K of phase 9: K * NREC_KC % 8 != 0 takes the index select (K8)
+K_INDEX = 12
 NEAR, FAR = 1e-2, 1e10
 SEED = 0
 
@@ -205,6 +223,19 @@ def pose_errors(est_c2w, true_c2w):
     return e_t, e_r
 
 
+def frame_scene(pair, which, dev):
+    """The frozen scene of the pair's `which` ("tar" or "src") frame,
+    back-projected and placed in the world with the tar camera (816,000
+    splats at 1200x680)."""
+    K = torch.as_tensor(pair["K"], device=dev)
+    tar_c2w = torch.as_tensor(pair["tar_c2w"], device=dev)
+    pts = transform_points(tar_c2w, depth_to_points(
+        torch.as_tensor(pair[f"{which}_depth"], device=dev), K))
+    rgb = torch.as_tensor(pair[f"{which}_rgb"], device=dev).reshape(-1, 3)
+    return scene_from_point_cloud(pts, rgb / 255.0, grid_shape=(H, W),
+                                  device=dev)
+
+
 def kernel_entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -220,11 +251,7 @@ def check_kernels(pair, dev):
     tar_c2w = torch.as_tensor(pair["tar_c2w"], device=dev)
 
     # --- K4: the depth-target render of the src cloud from the tar view
-    src_pts = transform_points(
-        tar_c2w, depth_to_points(torch.as_tensor(pair["src_depth"], device=dev), K))
-    src_rgb = torch.as_tensor(pair["src_rgb"], device=dev).reshape(-1, 3) / 255.0
-    gt_scene = scene_from_point_cloud(src_pts, src_rgb, grid_shape=(H, W),
-                                      device=dev)
+    gt_scene = frame_scene(pair, "src", dev)
     vm = invert_se3(tar_c2w)
     slot_p, meta_p, _ = fs.build_subtile_slot_buffer(
         gt_scene, vm, K, W, H, NEAR, FAR)
@@ -270,11 +297,7 @@ def check_kernels(pair, dev):
     del slot_p, p8_k, p8_p, out_p, gt_scene
 
     # --- K3: select at the init pose of the tracking scene
-    tar_pts = transform_points(
-        tar_c2w, depth_to_points(torch.as_tensor(pair["tar_depth"], device=dev), K))
-    tar_rgb = torch.as_tensor(pair["tar_rgb"], device=dev).reshape(-1, 3) / 255.0
-    scene = scene_from_point_cloud(tar_pts, tar_rgb, grid_shape=(H, W),
-                                   device=dev)
+    scene = frame_scene(pair, "tar", dev)
     slot3d, meta, ovf = kc.build_kcover_slot_buffer(
         scene, vm, K, W, H, NEAR, FAR)
     if bool(ovf):
@@ -307,7 +330,9 @@ def check_kernels(pair, dev):
               stats["pairs"] * OPS_PAIR_SELECT
               + stats["slots"] * (OPS_PROJECT + OPS_COEFF)),
         render_err=r_err))
-    del kb_p, r_k, r_p, slot3d
+    del kb_p, r_k, r_p
+    entries.append(check_index_select(slot3d, meta, cam, kb_k, n_ty, n_tx))
+    del slot3d
 
     # --- K1 / K2: the step render at a pose about a pixel away from the
     # selection pose (the staleness the select gate allows), so that every
@@ -375,6 +400,59 @@ def check_kernels(pair, dev):
     del kb_k
     entries += check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx)
     return entries
+
+
+def check_index_select(slot3d, meta, cam, kb_k, n_ty, n_tx):
+    """K8 on the phase-3 K-cover slot buffer, fed by K4a: bit-equal to its
+    plain version at K=16 and at K=12, and its columns gathered into
+    records (the index route of build_kcover_buffer) bit-equal to K3's
+    records at K=16 (kb_k) and at K=12. The row's time, plain time and
+    bound are those at K=12, the K of the path that launches K8 (phase
+    9); the K=16 time rides along as ms_k16."""
+    p8 = fs.project8(slot3d, cam, NEAR, FAR)
+    dummy = float(slot3d.shape[1])
+    runs = {}
+    for k in (K_COVER, K_INDEX):
+        idx_k = kc.select_kcover(p8, meta, n_ty, n_tx, k)
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_p = kc._select_index_plain(p8, meta, n_ty, n_tx, k, stats=stats)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        err = float((idx_k - idx_p).abs().max())
+        bit_equal = torch.equal(idx_k, idx_p)
+        filled = float((idx_k != dummy).float().mean())
+        del idx_p
+        kb_r = kb_k if k == K_COVER else kc.select_kcover_records(
+            slot3d, meta, cam, n_ty, n_tx, k, NEAR, FAR)
+        gathered = torch.equal(kc.build_kcover_buffer(
+            slot3d, meta, cam, n_ty, n_tx, NEAR, FAR, k_cover=k,
+            via="gather"), kb_r)
+        del kb_r
+        log(f"[kernels] kcover_select: B_pad={slot3d.shape[1]} K={k} "
+            f"max_abs_err={err:.3e} bit_equal={bit_equal} "
+            f"filled={filled:.4f}; gathered records bit-equal to "
+            f"kcover_select_records: {gathered} (full size, no crop)")
+        if not (bit_equal and gathered):
+            raise RuntimeError(
+                f"kcover_select at K={k} disagrees: with its plain version "
+                f"{bit_equal} (err {err}), gathered records vs the records "
+                f"select {gathered}")
+        ms = time_ms(lambda: kc.select_kcover(p8, meta, n_ty, n_tx, k), 20)
+        runs[k] = dict(err=err, ms=ms, pms=pms, stats=stats,
+                       out_bytes=idx_k.numel() * 4)
+        del idx_k
+    r = runs[K_INDEX]
+    return kernel_entry(
+        "kcover_select", "gsplatloc_tpu_torch/csrc/kcover_select.cu",
+        "gsplatloc_tpu/ops/kcover.py:540",
+        max(r["err"], runs[K_COVER]["err"]), r["ms"], r["pms"],
+        bound(r["stats"]["slots"] * 8 * 4 + r["out_bytes"] + meta.numel() * 4,
+              r["stats"]["pairs"] * OPS_PAIR_SELECT
+              + r["stats"]["slots"] * OPS_COEFF),
+        k_cover=K_INDEX, walked_slots=r["stats"]["slots"],
+        pairs=r["stats"]["pairs"], ms_k16=runs[K_COVER]["ms"])
 
 
 def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
@@ -522,12 +600,8 @@ def check_rasterize(pair, dev):
 
     entries = []
     K = torch.as_tensor(pair["K"], device=dev)
-    tar_c2w = torch.as_tensor(pair["tar_c2w"], device=dev)
-    vm = invert_se3(tar_c2w)
-    pts = transform_points(
-        tar_c2w, depth_to_points(torch.as_tensor(pair["tar_depth"], device=dev), K))
-    rgb = torch.as_tensor(pair["tar_rgb"], device=dev).reshape(-1, 3) / 255.0
-    scene = scene_from_point_cloud(pts, rgb, grid_shape=(H, W), device=dev)
+    vm = invert_se3(torch.as_tensor(pair["tar_c2w"], device=dev))
+    scene = frame_scene(pair, "tar", dev)
     with torch.no_grad():
         proj = project_gaussians(scene.means, scene.quats, scene.scales, vm,
                                  K, W, H)
@@ -535,7 +609,7 @@ def check_rasterize(pair, dev):
         packed, meta, b = rt.pack_slots(
             proj.mean2d, proj.conic, proj.depth, scene.opacities, colors,
             proj.valid, proj.radius, W, H)
-    del scene, proj, colors, pts, rgb
+    del scene, proj, colors
     n_ty, n_tx = b.n_tiles_y, b.n_tiles_x
     m_pad = packed.shape[1]
 
@@ -633,14 +707,10 @@ def check_fused_tracking(pair, dev):
 
     entries = []
     K = torch.as_tensor(pair["K"], device=dev)
-    tar_c2w = torch.as_tensor(pair["tar_c2w"], device=dev)
-    pts = transform_points(
-        tar_c2w, depth_to_points(torch.as_tensor(pair["tar_depth"], device=dev), K))
-    rgb = torch.as_tensor(pair["tar_rgb"], device=dev).reshape(-1, 3) / 255.0
-    scene = scene_from_point_cloud(pts, rgb, grid_shape=(H, W), device=dev)
+    scene = frame_scene(pair, "tar", dev)
     vm = invert_se3(torch.as_tensor(pair["src_c2w"], device=dev))
     slot, meta, b = ft.build_slot_buffer(scene, vm, K, W, H, NEAR, FAR)
-    del scene, pts, rgb
+    del scene
     n_ty, n_tx = b.n_tiles_y, b.n_tiles_x
     m_pad = slot.shape[1]
     cam = cam_vector(vm, K, W, H).contiguous()
@@ -912,6 +982,11 @@ TRACK_RUNS = (
     ("kcover16_serial", ["--no-prefetch"], ()),
     ("kcover0_serial", ["--kcover", "0", "--no-prefetch"], ()),
 )
+TRACK_RUNS_K12 = (
+    ("kcover12", ["--kcover", "12"], ("kcover_step_fwd", "kcover_step_bwd",
+                                      "kcover_select", "project8",
+                                      "subtile_fwd")),
+)
 TRACK_RUNS_GENERAL = (
     ("pallas", ["--backend", "pallas"], ("rasterize_fwd", "rasterize_bwd")),
 )
@@ -977,10 +1052,123 @@ def run_sequence_fulltile():
     return counts["fulltile"]
 
 
+def kcover12_pair(pair, dev):
+    """Phase 9a: the pair tracked twice at K=12. Every selection (the
+    initial one and each re-selection) runs project8 and the index select
+    once; the depth target runs project8 and the sub-tile forward once
+    more; the records select never runs."""
+    counts, res = tracked_pair(
+        pair, dev, TrackingConfig(max_steps=300, kcover=K_INDEX), "kcover12")
+    n_sel = res.selects + 1
+    if not (counts["kcover_select_records"] == 0
+            and counts["kcover_select"] == n_sel
+            and counts["project8"] == n_sel + 1
+            and counts["subtile_fwd"] == 1
+            and counts["kcover_step_fwd"] == counts["kcover_step_bwd"] >= 1):
+        raise RuntimeError(f"K=12 path launch counts: {counts} (selects "
+                           f"{res.selects} after the first selection)")
+    return counts
+
+
+def route_times(pair, dev):
+    """Phase 9b: one re-selection by each route on the phase-3 slot buffer
+    (the tracking scene binned at the init pose), at K=12 and K=16:
+    build_kcover_buffer's index route (project8 + the index select + the
+    row gather) and the records select called directly; at K=12 also the
+    index route's three parts."""
+    n_ty, n_tx = -(-H // TILE_H), -(-W // TILE_W)
+    K = torch.as_tensor(pair["K"], device=dev)
+    vm = invert_se3(torch.as_tensor(pair["tar_c2w"], device=dev))
+    slot3d, meta, _ = kc.build_kcover_slot_buffer(
+        frame_scene(pair, "tar", dev), vm, K, W, H, NEAR, FAR)
+    cam = cam_vector(vm, K, W, H).contiguous()
+    out = {}
+    for k in (K_INDEX, K_COVER):
+        out[f"index_route_k{k}"] = time_ms(lambda: kc.build_kcover_buffer(
+            slot3d, meta, cam, n_ty, n_tx, NEAR, FAR, k_cover=k,
+            via="gather"), 10)
+        out[f"records_k{k}"] = time_ms(lambda: kc.select_kcover_records(
+            slot3d, meta, cam, n_ty, n_tx, k, NEAR, FAR), 10)
+    p8 = fs.project8(slot3d, cam, NEAR, FAR)
+    idx = kc.select_kcover(p8, meta, n_ty, n_tx, K_INDEX)
+    out["k12_project8"] = time_ms(
+        lambda: fs.project8(slot3d, cam, NEAR, FAR), 20)
+    out["k12_kcover_select"] = time_ms(
+        lambda: kc.select_kcover(p8, meta, n_ty, n_tx, K_INDEX), 20)
+    out["k12_gather"] = time_ms(lambda: kc.gather_records(slot3d, idx), 20)
+    log(f"[kcover-any-K] one re-selection at the phase-3 pose, ms: "
+        f"{json.dumps({k: float(f'{v:.4f}') for k, v in out.items()})}")
+    return out
+
+
+def parity_gates(dev):
+    """Phase 9c: the fused families' parity gates on the card at their
+    defaults (128x256). subtile_parity and kcover_parity(k_cover=16) must
+    pass. kcover_parity(k_cover=12) fails its gate in both packages (K=12
+    truncates some cover lists of the box-room scene; the reference's own
+    function gives ok=False on the CPU), so the card must give the
+    verdict and the numbers of the plain run on the CPU, through the
+    index select and never the records select."""
+    from gsplatloc_tpu_torch.ops.parity import kcover_parity, subtile_parity
+
+    def show(tag, r, secs):
+        log(f"[kcover-any-K] {tag}: ok={r['ok']} d_err {r['d_err']:.3e} "
+            f"a_err {r['a_err']:.3e} loss_full {r['loss_full']:.8e} "
+            f"loss_sub {r['loss_sub']:.8e} loss_rel {r['loss_rel']:.3e} "
+            f"grad_rel {r['grad_rel']:.3e} ({secs:.1f} s)")
+
+    runs = {}
+    for tag, fn in (("subtile_parity", lambda d: subtile_parity(device=d)),
+                    ("kcover_parity(16)",
+                     lambda d: kcover_parity(k_cover=16, device=d)),
+                    ("kcover_parity(12)",
+                     lambda d: kcover_parity(k_cover=12, device=d))):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = fn(dev)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        show(tag, r, time.perf_counter() - t0)
+        runs[tag] = (r, counts)
+    for tag in ("subtile_parity", "kcover_parity(16)"):
+        if not runs[tag][0]["ok"]:
+            raise RuntimeError(f"{tag} failed on the card: {runs[tag][0]}")
+    r12, c12 = runs["kcover_parity(12)"]
+    c16 = runs["kcover_parity(16)"][1]
+    if not (c12["kcover_select"] == 1 and c12["kcover_select_records"] == 0
+            and c16["kcover_select_records"] == 1
+            and c16["kcover_select"] == 0):
+        raise RuntimeError(f"parity select routes: K=12 {c12}, K=16 {c16}")
+    t0 = time.perf_counter()
+    cpu = kcover_parity(k_cover=12, device="cpu")
+    show("kcover_parity(12) plain, CPU", cpu, time.perf_counter() - t0)
+    scale = max(float(np.abs(cpu["grad_sub"]).max()), 1e-12)
+    g_err = float(np.abs(r12["grad_sub"] - cpu["grad_sub"]).max()) / scale
+    # the scene, its binning and its sort run on both devices; an ulp of
+    # depth may reorder two splats, so the numbers are held to 1e-3 (the
+    # CPU tests hold the plain run to the reference's within 1e-4)
+    same = (r12["ok"] == cpu["ok"]
+            and abs(r12["d_err"] - cpu["d_err"]) <= 1e-3
+            and abs(r12["a_err"] - cpu["a_err"]) <= 1e-3
+            and abs(r12["loss_sub"] - cpu["loss_sub"])
+            <= 1e-4 * abs(cpu["loss_sub"])
+            and abs(r12["loss_full"] - cpu["loss_full"])
+            <= 1e-4 * abs(cpu["loss_full"])
+            and g_err <= 1e-3)
+    log(f"[kcover-any-K] kcover_parity(12) card == CPU plain (verdict; "
+        f"errors 1e-3; losses 1e-4 rel; gradient 1e-3 of its scale): {same} "
+        f"(gradient {g_err:.3e})")
+    if not same:
+        raise RuntimeError("kcover_parity(12) on the card differs from its "
+                           f"plain run: {r12} vs {cpu}")
+    return {tag: r["ok"] for tag, (r, _c) in runs.items()}
+
+
 def run_track_cli(runs):
     """Phases 6 and 7c: `cli track` on a generated 4-frame Synthetic
     sequence at 1200x680, in process, with the kernels' launch counters
-    zeroed before and read after each run. Returns {tag: launch counts}."""
+    zeroed before and read after each run. Returns {tag: launch counts,
+    with the run's pairs and its re-selections summed over them}."""
     from gsplatloc_tpu_torch import cli
 
     n_frames, n_iters = 4, 300
@@ -1029,7 +1217,8 @@ def run_track_cli(runs):
                 if counts[name] < 1:
                     raise RuntimeError(f"track {tag} never launched {name}")
             results[tag] = e_t
-            all_counts[tag] = counts
+            all_counts[tag] = dict(counts, selects=sum(
+                int(p["selects"]) for p in pairs), pairs=len(pairs))
         for tag in results:
             if tag.endswith("_serial"):
                 base = tag[:-len("_serial")]
@@ -1079,6 +1268,8 @@ def main():
             raise RuntimeError(f"main path never launched {name}")
     if counts4["kcover_step_fwd"] != counts4["kcover_step_bwd"]:
         raise RuntimeError("forward and backward step launches differ")
+    if counts4["kcover_select"]:
+        raise RuntimeError("the K=16 path launched the index select")
     torch.cuda.empty_cache()
 
     # 5. the sub-tile path (kcover=0), twice
@@ -1132,8 +1323,22 @@ def main():
         counts8[compact] = fulltile_pair(pair, dev, compact)
         torch.cuda.empty_cache()
     run_sequence_fulltile()
+    torch.cuda.empty_cache()
 
-    counts = dict(counts4, subtile_bwd=counts5["subtile_bwd"],
+    # 9. the K-cover path at K=12 (the index route)
+    counts9 = kcover12_pair(pair, dev)
+    torch.cuda.empty_cache()
+    route_times(pair, dev)
+    torch.cuda.empty_cache()
+    parity_gates(dev)
+    torch.cuda.empty_cache()
+    c9 = run_track_cli(TRACK_RUNS_K12)["kcover12"]
+    if not (c9["kcover_select_records"] == 0
+            and c9["kcover_select"] == c9["selects"] + c9["pairs"]):
+        raise RuntimeError(f"track --kcover 12 launch counts: {c9}")
+
+    counts = dict(counts4, kcover_select=counts9["kcover_select"],
+                  subtile_bwd=counts5["subtile_bwd"],
                   subtile_chain=counts5["subtile_chain"],
                   rasterize_fwd=counts7["rasterize_fwd"],
                   rasterize_bwd=counts7["rasterize_bwd"],
@@ -1142,12 +1347,12 @@ def main():
                   fused_probe=counts8[True]["fused_probe"])
     for e in entries:
         # launches on the path that runs the kernel: K-cover (phase 4) for
-        # K1-K4, sub-tile (phase 5) for the sub-tile backward, general
-        # (phase 7b) for K6a/K6b, full-tile (phase 8) for K7a/K7b and,
-        # with compaction, K7c
+        # K1-K4, K-cover at K=12 (phase 9a) for K8, sub-tile (phase 5) for
+        # the sub-tile backward, general (phase 7b) for K6a/K6b, full-tile
+        # (phase 8) for K7a/K7b and, with compaction, K7c
         e["launches"] = counts[e["name"]]
-    if len(entries) != 12:
-        raise RuntimeError(f"{len(entries)} kernels checked, not 12")
+    if len(entries) != 13:
+        raise RuntimeError(f"{len(entries)} kernels checked, not 13")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"kernels": entries}))

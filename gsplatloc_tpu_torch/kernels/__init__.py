@@ -44,6 +44,7 @@ _SIGNATURES = {
     "gsl_kcover_step_fwd": [_P, _P, _P, _I, _L, _I, _F, _F, _P],
     "gsl_kcover_step_bwd": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _F, _I, _P],
     "gsl_kcover_select_records": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _F, _F, _P],
+    "gsl_kcover_select": [_P, _P, _P, _I, _L, _L, _I, _I, _P],
     "gsl_project8": [_P, _P, _P, _L, _F, _F, _P],
     "gsl_subtile_fwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
     "gsl_subtile_bwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
@@ -183,6 +184,7 @@ def _wrappers():
         "kcover_step_fwd": kcover.kcover_step_fwd,
         "kcover_step_bwd": kcover.kcover_step_bwd,
         "kcover_select_records": kcover.select_kcover_records,
+        "kcover_select": kcover.select_kcover,
         "project8": fused_subtile.project8,
         "subtile_fwd": fused_subtile.subtile_fwd,
         "subtile_bwd": fused_subtile.subtile_bwd,

@@ -8,7 +8,9 @@ a pixel is as static as the tile assignment:
   1. SELECT (once per re-selection): walk the depth-sorted sub-tile
      segments of the slot buffer and emit for every pixel the 3D records
      [x, y, z, s2, opa] of its first K alpha hits, front to back, into a
-     dense (NREC_KC=5, K, M_out) cover buffer (`select_kcover_records`).
+     dense (NREC_KC=5, K, M_out) cover buffer (`build_kcover_buffer`:
+     `select_kcover_records` directly, or `select_kcover`'s slot columns
+     and a row gather, routed on K as in the JAX package).
   2. RENDER (every step): project the K records per pixel with the CURRENT
      pose, evaluate alpha at the pixel centre and composite over the K
      axis (`render_kcover`); differentiable w.r.t. the cam vector through
@@ -21,12 +23,14 @@ Kernels (csrc/), each with its plain PyTorch version in this module:
       replaces the Pallas _kcover_step_bwd_kernel
   select_kcover_records  (csrc/kcover_select.cu) plain: _select_records_plain
       replaces the Pallas _kcover_select_records_kernel
+  select_kcover          (csrc/kcover_select.cu) plain: _select_index_plain
+      replaces the Pallas _kcover_select_kernel
 A wrapper takes its plain version ONLY for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises.
 
 Selection semantics: liveness is exact per pixel (a pixel admits hits only
-while its own transmittance is above T_EPS). The reference's TPU kernel
-gates liveness per 256-slot block and may admit post-death hits into the
+while its own transmittance is above T_EPS). The reference's TPU kernels
+gate liveness per 256-slot block and may admit post-death hits into the
 tail of a K-list; the render weighs those at <= T_EPS in total, so the two
 buffers render alike to within T_EPS while their dead tails differ.
 """
@@ -46,6 +50,7 @@ from .fused_subtile import (
     KY_SUB,
     N_SUB,
     N_SUB_X,
+    NUM_PROJ_ROWS,
     P_SUB,
     SIG_EPS,
     SUB_H,
@@ -57,6 +62,7 @@ from .fused_subtile import (
     _sub_alpha,
     _sub_mono,
     iso_records,
+    project8,
     scramble_image,
     unscramble_image,
 )
@@ -73,31 +79,33 @@ NREC_KC = 5
 
 
 # ---------------------------------------------------------------------------
-# K3: records select
+# K3 / K8: the select, in its records and its index form
 # ---------------------------------------------------------------------------
 
-def _select_records_plain(slot3d, meta, cam, n_ty, n_tx, k_cover, near, far,
-                          stats=None):
-    """Plain PyTorch select with the kernel's EXACT per-pixel semantics:
-    every segment advances one slot per iteration (vectorized over
-    segments and pixels); a pixel appends a slot's record iff the slot's
-    gated alpha is > 0 while the pixel's own transmittance is > T_EPS and
-    it holds fewer than K records. Reads the longest segment length (and a
-    done flag every 64 slots) back to the host. stats (optional dict)
-    receives the work this input needs: `pairs` ((slot, pixel) pairs met
-    by a still-selecting pixel) and `slots` (slots met by a sub-tile with
-    at least one such pixel)."""
-    dev = slot3d.device
+def _select_walk(p8, rows, fill, meta, n_ty, n_tx, k_cover, stats=None):
+    """Plain PyTorch select walk, shared by both select forms, with the
+    kernels' EXACT per-pixel semantics: every segment advances one slot per
+    iteration (vectorized over segments and pixels); a pixel appends the
+    slot's column of `rows` (R, B_pad) iff the slot's gated alpha (from the
+    projected rows p8 (8, B_pad)) is > 0 while the pixel's own
+    transmittance is > T_EPS and it holds fewer than K entries; entries it
+    never fills hold `fill`. Reads the longest segment length (and a done
+    flag every 64 slots) back to the host. stats (optional dict) receives
+    the work this input needs: `pairs` ((slot, pixel) pairs met by a
+    still-selecting pixel) and `slots` (slots met by a sub-tile with at
+    least one such pixel). Returns (R, K, M_out)."""
+    dev = p8.device
     n_seg = n_ty * n_tx * N_SUB
     m_out = n_seg * P_SUB
-    b_pad = slot3d.shape[1]
-    p8 = _project8_rows(_project_slots(slot3d, cam), near, far)
+    b_pad = p8.shape[1]
+    n_rows = rows.shape[0]
     starts, ends = _segment_bounds(meta, n_seg)
     seg_len = ends - starts
     max_len = int(seg_len.max())
     x0, y0 = _segment_origins(meta, n_seg, n_tx)
     mono = _sub_mono(dev)
-    out = torch.zeros((n_seg, k_cover, NREC_KC, P_SUB), dtype=F32, device=dev)
+    out = torch.full((n_seg, k_cover, n_rows, P_SUB), fill, dtype=F32,
+                     device=dev)
     t = torch.ones((n_seg, P_SUB), dtype=F32, device=dev)
     cnt = torch.zeros((n_seg, P_SUB), dtype=torch.int64, device=dev)
     n_pairs = torch.zeros((), dtype=torch.int64, device=dev)
@@ -116,9 +124,9 @@ def _select_records_plain(slot3d, meta, cam, n_ty, n_tx, k_cover, near, far,
             sel = (t > T_EPS) & (cnt < k_cover) & inseg
             n_pairs += sel.sum()
             n_slots += sel.any(dim=1).sum()
-        rec = slot3d[:NREC_KC, idx].T  # (n_seg, 5)
+        rec = rows[:, idx].T  # (n_seg, R)
         index = cnt.clamp_max(k_cover - 1)[:, None, None, :].expand(
-            n_seg, 1, NREC_KC, P_SUB)
+            n_seg, 1, n_rows, P_SUB)
         cur = out.gather(1, index)
         new = torch.where(hit[:, None, None, :],
                           rec[:, None, :, None].expand_as(cur), cur)
@@ -128,8 +136,26 @@ def _select_records_plain(slot3d, meta, cam, n_ty, n_tx, k_cover, near, far,
     if stats is not None:
         stats["pairs"] = int(n_pairs)
         stats["slots"] = int(n_slots)
-    # (n_seg, K, 5, P) -> (5, K, M_out)
-    return out.permute(2, 1, 0, 3).reshape(NREC_KC, k_cover, m_out).contiguous()
+    # (n_seg, K, R, P) -> (R, K, M_out)
+    return out.permute(2, 1, 0, 3).reshape(n_rows, k_cover, m_out).contiguous()
+
+
+def _select_records_plain(slot3d, meta, cam, n_ty, n_tx, k_cover, near, far,
+                          stats=None):
+    """Plain PyTorch records select: `_select_walk` over the slots projected
+    with `cam`, emitting the 5 record rows (uncovered = zero record)."""
+    p8 = _project8_rows(_project_slots(slot3d, cam), near, far)
+    return _select_walk(p8, slot3d[:NREC_KC], 0.0, meta, n_ty, n_tx, k_cover,
+                        stats)
+
+
+def _select_index_plain(proj8, meta, n_ty, n_tx, k_cover, stats=None):
+    """Plain PyTorch index select: `_select_walk` over the projected rows,
+    emitting each hit's slot column as f32 (uncovered = M_pad)."""
+    m_pad = proj8.shape[1]
+    cols = torch.arange(m_pad, dtype=F32, device=proj8.device)[None, :]
+    return _select_walk(proj8, cols, float(m_pad), meta, n_ty, n_tx, k_cover,
+                        stats)[0]
 
 
 def select_kcover_records(slot3d, meta, cam, n_ty: int, n_tx: int,
@@ -138,10 +164,11 @@ def select_kcover_records(slot3d, meta, cam, n_ty: int, n_tx: int,
     RECORDS (scrambled sub-tile-major pixel layout; uncovered = zero
     record), projected in-kernel from slot3d with `cam`.
 
-    CUDA tensor: the hand-written kernel (csrc/kcover_select.cu, which
-    replaces the Pallas _kcover_select_records_kernel; bound by operations
-    — one block per sub-tile, one thread per pixel, slots projected once
-    while staged into shared memory). CPU tensor: `_select_records_plain`."""
+    CUDA tensor: the hand-written kernel (csrc/kcover_select.cu, the
+    records form of kcover_select_kernel, which replaces the Pallas
+    _kcover_select_records_kernel; bound by operations — one block per
+    sub-tile, one thread per pixel, slots projected once while staged into
+    shared memory). CPU tensor: `_select_records_plain`."""
     if not slot3d.is_cuda:
         return _select_records_plain(slot3d, meta, cam, n_ty, n_tx, k_cover,
                                      near, far)
@@ -169,20 +196,74 @@ def select_kcover_records(slot3d, meta, cam, n_ty: int, n_tx: int,
 select_kcover_records.launches = 0
 
 
+def select_kcover(proj8, meta, n_ty: int, n_tx: int, k_cover: int):
+    """(k_cover, M_out) f32 slot-column indices of each pixel's first K
+    covers, front to back (scrambled sub-tile-major pixel layout; dummy =
+    M_pad, one past the buffer — consumers gather from a zero-column-
+    appended array). proj8: the (8, M_pad) projected rows (`project8`).
+
+    CUDA tensor: the hand-written kernel (csrc/kcover_select.cu, the index
+    form of kcover_select_kernel, which replaces the Pallas
+    _kcover_select_kernel; the same walk as the records form, so both
+    forms find the same hits bit for bit). CPU tensor:
+    `_select_index_plain`. Raises when a column (up to the dummy M_pad)
+    would not be exact in f32."""
+    m_pad = proj8.shape[1]
+    if m_pad + 1 > 2 ** 24:
+        raise ValueError(
+            f"select_kcover: M_pad={m_pad} — f32 column indices are exact "
+            "only below 2**24 (M_pad + 1 columns with the dummy)")
+    if not proj8.is_cuda:
+        return _select_index_plain(proj8, meta, n_ty, n_tx, k_cover)
+    n_seg = n_ty * n_tx * N_SUB
+    m_out = n_seg * P_SUB
+    kernels.require(proj8, "proj8", (NUM_PROJ_ROWS, m_pad))
+    kernels.require(meta, "meta", (n_seg + 2,), dtype=torch.int32,
+                    device=proj8.device)
+    # uncovered entries hold the dummy column: the kernel writes hits only
+    out = torch.full((k_cover, m_out), float(m_pad), dtype=F32,
+                     device=proj8.device)
+    lib = kernels.load()
+    err = lib.gsl_kcover_select(
+        meta.data_ptr(), proj8.data_ptr(), out.data_ptr(), k_cover, m_pad,
+        m_out, n_seg, n_tx, kernels.stream_ptr())
+    kernels.check(err, "kcover_select")
+    select_kcover.launches += 1
+    return out
+
+
+select_kcover.launches = 0
+
+
 def build_kcover_buffer(slot3d, meta, cam, n_ty: int, n_tx: int,
                         near: float, far: float, k_cover: int = 8,
                         via: str = "records"):
     """Re-selection: each pixel's K cover records as a dense
     (NREC_KC, K, M_out) buffer (the step loop reads it with zero gathers).
-    Only via="records" (the select emits the records directly) is ported;
-    the index-emitting cross-check form is a later slice."""
-    if via != "records":
-        raise NotImplementedError(
-            f"build_kcover_buffer(via={via!r}): only via='records' is "
-            "ported (the index-emitting select is a later slice)")
+
+    Routed as in the JAX package: via="records" with K*NREC_KC % 8 == 0
+    (K = 8, 16, 24, ...) runs the records select (K3), which emits the
+    records directly; anything else (via="gather", or K = 4, 12, 20, ...)
+    projects the slots (`project8`), runs the index select (K8) and
+    row-gathers the records from slot3d[:NREC_KC] with a zero column
+    appended for the dummy. Both routes walk alike, so they build the same
+    buffer bit for bit."""
     with torch.no_grad():
-        return select_kcover_records(slot3d, meta, cam, n_ty, n_tx, k_cover,
-                                     near, far)
+        if via == "records" and (k_cover * NREC_KC) % 8 == 0:
+            return select_kcover_records(slot3d, meta, cam, n_ty, n_tx,
+                                         k_cover, near, far)
+        proj8 = project8(slot3d, cam.detach().contiguous(), near, far)
+        return gather_records(slot3d,
+                              select_kcover(proj8, meta, n_ty, n_tx, k_cover))
+
+
+def gather_records(slot3d, idx):
+    """(NREC_KC, K, M_out) cover records at the (K, M_out) f32 slot columns
+    `idx` of the index select, gathered from slot3d[:NREC_KC] with a zero
+    column appended for the dummy column M_pad (uncovered = zero record)."""
+    src = torch.cat([slot3d[:NREC_KC], slot3d.new_zeros((NREC_KC, 1))], dim=1)
+    recs = src[:, idx.to(torch.int64).reshape(-1)]  # (5, K * M_out)
+    return recs.reshape(NREC_KC, *idx.shape)
 
 
 def build_kcover_slot_buffer(scene, viewmat, K, width: int, height: int,

@@ -187,6 +187,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     p8 = fs.project8(slot, cam, 1e-2, 1e10)
     fs.subtile_fwd(p8, meta, n_ty, n_tx)
     kb = kc.select_kcover_records(slot, meta, cam, n_ty, n_tx, 8, 1e-2, 1e10)
+    kc.select_kcover(p8, meta, n_ty, n_tx, 8)
     kc.kcover_step_fwd(kb, cam, n_ty, n_tx, 1e-2, 1e10)
     kc.kcover_step_bwd(kb, cam, n_ty, n_tx, 1e-2, 1e10,
                        torch.zeros(m_out), torch.zeros(m_out))
@@ -204,7 +205,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ft.fused_probe(iso, rmeta, cam, n_ty, n_tx, 1e-2, 1e10)
     counts = kernels.launch_counts()
     assert set(counts) == {"kcover_step_fwd", "kcover_step_bwd",
-                           "kcover_select_records", "project8",
+                           "kcover_select_records", "kcover_select",
+                           "project8",
                            "subtile_fwd", "subtile_bwd", "subtile_chain",
                            "rasterize_fwd", "rasterize_bwd", "fused_fwd",
                            "fused_bwd", "fused_probe"}

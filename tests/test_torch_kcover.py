@@ -1,5 +1,6 @@
 """Port vs reference: the K-cover renderer (slot buffer, records select,
-step render forward and hand-written backward).
+step render forward and hand-written backward; the index select and the
+routing on K are in test_torch_kcover_index.py).
 
 On the CPU the port's wrappers take their plain PyTorch versions; the
 reference's Pallas kernels run in interpret mode (as the reference's own
@@ -154,14 +155,6 @@ def test_select_uncovered_pixels_are_zero_records():
     kb = tkc.select_kcover_records(slot, meta, cam, N_TY, N_TX, 8, NEAR, FAR)
     assert tuple(kb.shape) == (5, 8, N_TY * N_TX * 8 * 256)
     assert float(kb.abs().max()) == 0.0
-
-
-def test_build_kcover_buffer_gather_path_is_not_ported(ctx):
-    with pytest.raises(NotImplementedError):
-        tkc.build_kcover_buffer(tt(ctx["slot_j"]),
-                                tt(ctx["meta_j"], torch.int32), ctx["cam_t"],
-                                N_TY, N_TX, NEAR, FAR, k_cover=K_COVER,
-                                via="gather")
 
 
 # ------------------------------------------------------------ step render
