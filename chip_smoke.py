@@ -14,7 +14,12 @@ Phases (each raises on failure; nothing carries on on the CPU):
                timings and the least time the card could take for the same
                work; the index select against its plain version and its
                gathered records against the records select's, both at
-               K=16 and at K=12, bit for bit.
+               K=16 and at K=12, bit for bit; for the two backward walks
+               that skip the pixels outside each slot's footprint box (K6b,
+               K7b), every gate hit of the walked chunks inside its box
+               (`_footprint_box`), the pairs the boxes hold, how the walk's
+               slots fall on the 8 warps of a tile, and the kernels'
+               registers and spills from the build's -Xptxas -v.
   4. main    — one displaced synthetic RGB-D frame pair prepared
                (_assemble_pair) and pose-tracked (optimize_pose, default
                K-cover configuration, max_steps=300), run twice; launch
@@ -67,6 +72,7 @@ is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -585,6 +591,110 @@ def footprint_pairs(records, meta, cd, n_tx):
                + degenerate.sum() * (TILE_H * TILE_W))
 
 
+def box_check(records, meta, cd, n_tx):
+    """The footprint cull of K6b and K7b against the gates, over every chunk
+    each tile's walk reached. records: fields 0-4 and 6 as the kernels read
+    them (for the full-tile walk the projected rows with opacity * ok).
+    Returns a dict: `hits`, the (slot, pixel) pairs that pass
+    `_chunk_alpha`'s gates, dead pixels included; `outside`, those of them
+    outside their slot's `_footprint_box`, which must be 0; `box_pairs`,
+    the pairs inside the boxes of the walked in-segment slots, which a
+    culled walk evaluates at most; `met_warps`, the (slot, warp) pairs whose
+    box meets the warp's 32x8 pixel rectangle, and `multi_warp_slots`, the
+    slots met by more than one warp; and per tile on average the walk's
+    balance over the 8 warps, in met (slot, warp) pairs: `chunk_sync`, the
+    sum over chunks of the busiest warp's (what warps that wait for each
+    other every chunk take), `busiest_warp` (what warps that walk on their
+    own take) and `mean_warp`."""
+    n = cd.shape[0]
+    dev = records.device
+    starts, ends, base, _ = rt._tile_bounds(meta, n)
+    px, py = rt._pixel_xy(n // n_tx, n_tx, meta[0].long(), dev)
+    t = torch.arange(n, device=dev)
+    x0 = (t % n_tx).float() * TILE_W
+    y0 = (t // n_tx + meta[0].long()).float() * TILE_H
+    col = torch.arange(rt.P, device=dev) % TILE_W
+    row = torch.arange(rt.P, device=dev) // TILE_W
+    out = dict(hits=0, outside=0, box_pairs=0, met_warps=0,
+               multi_warp_slots=0)
+    chunk_sync = torch.zeros(n, device=dev)
+    per_warp = torch.zeros((n, 8), device=dev)
+    cdl = cd.long()
+    for c in range(int(cdl.max()) if n else 0):
+        act = torch.nonzero(c < cdl)[:, 0]
+        alpha, _dx, _dy, in_seg, rec = rt._chunk_alpha(
+            records, base[act] + c * rt.CHUNK, starts[act], ends[act],
+            px[act], py[act])
+        del _dx, _dy
+        c_lo, c_hi, r_lo, r_hi = rt._footprint_box(
+            rec[0], rec[1], rec[2], rec[3], rec[4], rec[6],
+            x0[act][:, None], y0[act][:, None])
+        inside = ((col >= c_lo[..., None]) & (col <= c_hi[..., None])
+                  & (row >= r_lo[..., None]) & (row <= r_hi[..., None]))
+        hit = alpha > 0.0
+        out["hits"] += int(hit.sum())
+        out["outside"] += int((hit & ~inside).sum())
+        del alpha, inside, hit
+        area = (c_hi - c_lo + 1).clamp_min(0) * (r_hi - r_lo + 1).clamp_min(0)
+        out["box_pairs"] += int(area[in_seg].sum())
+        # the warps whose pixel rectangle each box meets (rasterize.cuh
+        # box_warps): column bands of 32, row bands of 8
+        band_c = ((torch.arange(4, device=dev) * 32 <= c_hi[..., None])
+                  & (torch.arange(4, device=dev) * 32 + 31 >= c_lo[..., None]))
+        band_r = ((torch.arange(2, device=dev) * 8 <= r_hi[..., None])
+                  & (torch.arange(2, device=dev) * 8 + 7 >= r_lo[..., None]))
+        met = (band_r[..., :, None] & band_c[..., None, :]).flatten(-2)
+        met = met & in_seg[..., None] & (area > 0)[..., None]  # (n, C, 8)
+        n_met = met.sum(-1)
+        out["met_warps"] += int(n_met.sum())
+        out["multi_warp_slots"] += int((n_met > 1).sum())
+        per_chunk = met.sum(1).float()  # (n, 8)
+        chunk_sync[act] += per_chunk.max(dim=1).values
+        per_warp[act] += per_chunk
+    out["chunk_sync"] = float(chunk_sync.mean())
+    out["busiest_warp"] = float(per_warp.max(dim=1).values.mean())
+    out["mean_warp"] = float(per_warp.mean())
+    return out
+
+
+def log_cull(name, cull, needed, walked, regs, spill_st, spill_ld):
+    """Print box_check's counts for one kernel; raise on a gate hit outside
+    its box."""
+    log(f"[kernels] {name} footprint cull: gate hits {cull['hits']} in the "
+        f"walked chunks, {cull['outside']} outside their boxes; box_pairs "
+        f"{cull['box_pairs']} (footprint_pairs {needed}); warps met per "
+        f"walked slot {cull['met_warps'] / max(walked, 1):.4f}, slots met "
+        f"by several warps {cull['multi_warp_slots']}; per tile, met (slot, "
+        f"warp) pairs of the busiest warp summed over chunks "
+        f"{cull['chunk_sync']:.1f}, over the walk {cull['busiest_warp']:.1f}"
+        f", mean warp {cull['mean_warp']:.1f}; registers {regs}, spill "
+        f"stores/loads {spill_st}/{spill_ld} bytes")
+    if cull["outside"] != 0:
+        raise RuntimeError(f"{name}: {cull['outside']} gate hits outside the "
+                           "footprint boxes")
+
+
+def ptxas_usage(kernel):
+    """(registers, spill store bytes, spill load bytes) of one kernel from
+    this run's build log (nvcc -Xptxas -v), or (None, None, None) when
+    the library was not built in this run."""
+    log_path = kernels.BUILD_DIR / "build.log"
+    if not log_path.exists():
+        return None, None, None
+    regs = spill_st = spill_ld = None
+    found = False
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            found = kernel in line
+        elif found and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            spill_st, spill_ld = (int(v) for v, _ in nums)
+        elif found and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            found = False
+    return regs, spill_st, spill_ld
+
+
 def check_rasterize(pair, dev):
     """K6a / K6b at the general path's full shapes: the tracking scene
     (816,000 isotropic splats) projected at the initial pose, its SH
@@ -684,6 +794,9 @@ def check_rasterize(pair, dev):
                            f"rows {rel_rows}, zero-fill {zeros_equal}, "
                            f"pad rows zero {pad_zero}, repeatable {repeat}")
     del g_k2, g_p
+    cull = box_check(packed, meta, cd_k, n_tx)
+    regs, spill_st, spill_ld = ptxas_usage("rasterize_bwd_kernel")
+    log_cull("rasterize_bwd", cull, needed, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: rt.rasterize_bwd(packed, meta, cd_k, px_in, n_ty,
                                           n_tx), 10)
     entries.append(kernel_entry(
@@ -692,7 +805,11 @@ def check_rasterize(pair, dev):
         bound(walked * rt.N_FIELDS * 4 + px_in.numel() * 4
               + g_k.numel() * 4 + 4 * (cd_k.numel() + meta.numel()),
               needed * OPS_RAST_EVAL + stats["hits"] * OPS_RAST_BWD_HIT),
-        max_rel_err=max(rel_rows), walked_slots=walked))
+        max_rel_err=max(rel_rows), walked_slots=walked,
+        footprint_pairs=needed, box_pairs=cull["box_pairs"],
+        gate_hits_outside_box=cull["outside"],
+        multi_warp_slots=cull["multi_warp_slots"], regs=regs,
+        spill_stores=spill_st, spill_loads=spill_ld))
     return entries
 
 
@@ -732,7 +849,7 @@ def check_fused_tracking(pair, dev):
     proj = ft._project8_rows(ft._project_slots(slot, cam), NEAR, FAR)
     proj[6] = proj[6] * proj[7]
     needed = footprint_pairs(proj, meta, cd_k, n_tx)
-    del proj, out_p
+    del out_p
     log(f"[kernels] fused_fwd: M={b.num_pairs} M_pad={m_pad} tiles="
         f"{n_ty}x{n_tx} walked_slots={walked} walked_pairs={stats['pairs']} "
         f"footprint_pairs={needed} hits={stats['hits']} max_abs_err="
@@ -783,6 +900,10 @@ def check_fused_tracking(pair, dev):
     if not (rel <= TOL_BWD_REL and repeat):
         raise RuntimeError(f"fused_bwd disagrees: rel {rel}, repeatable "
                            f"{repeat}")
+    cull = box_check(proj, meta, cd_k, n_tx)
+    del proj
+    regs, spill_st, spill_ld = ptxas_usage("fused_bwd_kernel")
+    log_cull("fused_bwd", cull, needed, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: ft.fused_bwd(slot, meta, cam, cd_k, px_in, n_ty,
                                       n_tx, NEAR, FAR), 10)
     entries.append(kernel_entry(
@@ -792,7 +913,11 @@ def check_fused_tracking(pair, dev):
               walked * OPS_FUSED_SLOT + needed * OPS_RAST_EVAL
               + stats["hits"] * OPS_FUSED_BWD_HIT
               + bstats["chained"] * OPS_CHAIN),
-        max_rel_err=rel, chained_slots=bstats["chained"]))
+        max_rel_err=rel, chained_slots=bstats["chained"],
+        footprint_pairs=needed, box_pairs=cull["box_pairs"],
+        gate_hits_outside_box=cull["outside"],
+        multi_warp_slots=cull["multi_warp_slots"], regs=regs,
+        spill_stores=spill_st, spill_loads=spill_ld))
 
     c_k, pcd_k = ft.fused_probe(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
     torch.cuda.synchronize()

@@ -13,18 +13,20 @@
 // opacity and of the pixel images, one write of the outputs), operations
 // for fused_bwd (the pose chain of every slot with a nonzero sum), with the
 // per-pair operations counted only over the (slot, pixel) pairs inside each
-// slot's alpha-gate footprint. The kernels are far slower than either: each
-// walked slot meets all 2048 pixels of its 16x128 tile, as the reference's
-// kernels do.
+// slot's alpha-gate footprint. fused_fwd and fused_probe are far slower
+// than their bounds: each walked slot meets all 2048 pixels of its 16x128
+// tile, as the reference's kernels do. fused_bwd walks only the pixels of
+// each slot's footprint box (below).
 //
-// Design: the general rasterizer's tile layout (rasterize.cuh): one block
-// per tile, 256 threads of 8 pixels, 128-slot chunks from
-// floor(start/128)*128, a block vote for the chunk-granular stop. While a
-// chunk is staged, threads 0-127 project one slot each with the current
-// camera (project_parts / project8_rows of project.cuh, the plain
-// version's operation order) into shared memory; the validity row is
-// folded into the opacity (0 unless ok), which gates alpha to 0 exactly as
-// the plain version's explicit gate does. Reads at or past M_pad return 0.
+// Design of fused_fwd and fused_probe: the general rasterizer's tile
+// layout (rasterize.cuh): one block per tile, 256 threads of 8 pixels,
+// 128-slot chunks from floor(start/128)*128, a block vote for the
+// chunk-granular stop. While a chunk is staged, threads 0-127 project one
+// slot each with the current camera (project_parts / project8_rows of
+// project.cuh, the plain version's operation order) into shared memory;
+// the validity row is folded into the opacity (0 unless ok), which gates
+// alpha to 0 exactly as the plain version's explicit gate does. Reads at
+// or past M_pad return 0.
 // Every thread runs the plain version's sequential per-pixel recurrence:
 // t_incl = T*(1-alpha), w = T*alpha while t_incl > T_EPS, payload [qz, 1].
 // A dead pixel or a gated-off (slot, pixel) pair is an exact no-op and is
@@ -35,16 +37,30 @@
 //
 // fused_bwd: each pixel thread carries T and the running sum of w*phi
 // (phi = g_d*qz + g_a); the suffix the adjoint needs is the forward total
-// g_d*D + g_a*A minus that sum. Per slot, six sums over the tile's pixels
-// in the direct form (d_sigma*dx, d_sigma*dy, d_sigma*dx^2, d_sigma*dx*dy,
-// d_sigma*dy^2 with dx = px - u, and w*g_d): each thread over its 8 pixels,
-// the warp by shuffles (skipped when no lane holds a nonzero term), the 8
-// warps in warp order through shared memory. Then lane j of warp 0 runs
-// pose_chain for slot j with the slot's own (u, v) as the moment origin,
-// the 32 slots' partials join by a fixed shuffle tree, the block adds them
-// in chunk order, writes its 12 partials to a (n_tiles, 12) scratch, and
-// reduce.cuh's second pass sums the tiles in a fixed order in double. No
-// float atomics: a gradient and a tracking run repeat bit for bit.
+// g_d*D + g_a*A minus that sum. It walks like rasterize_bwd.cu (whose note
+// says more): each warp on its own over the whole segment, 32 slots at a
+// time, its lanes projecting the 32 slots with the current camera into the
+// warp's part of shared memory (opacity folded with ok) with their
+// footprint boxes (a slot that fails the ok gate, or whose opacity is below
+// 1/255, has an empty box); the warp walks only the slots whose box meets
+// its 32x8 pixel rectangle, and skips the columns and rows outside a box,
+// pairs whose alpha is 0 and that were exact no-ops before as well. Per
+// slot, six sums over the tile's pixels in the direct form (d_sigma*dx,
+// d_sigma*dy, d_sigma*dx^2, d_sigma*dx*dy, d_sigma*dy^2 with dx = px - u,
+// and w*g_d): each thread over its 8 pixels in row order, the warp by
+// shuffles (skipped when no lane holds a nonzero term), the warps that met
+// the slot in warp order from +0.0f (the last of them to arrive sums the
+// others' deposits, rasterize.cuh Pending), into a (6, M_pad) scratch.
+// That is the order of the walk without the cull, in which every warp met
+// every slot: leaving out a +0.0f changes no bit (no partial is ever
+// -0.0f). After a block barrier, lane j of warp g runs pose_chain for slot
+// j of the block's group g (8 groups of 32 slots at a time) with the slot's
+// own (u, v) as the moment origin, the 32 slots' partials join by a fixed
+// shuffle tree, thread 0 adds the groups in walk order, writes the tile's
+// 12 partials to a (n_tiles, 12) scratch, and reduce.cuh's second pass sums
+// the tiles in a fixed order in double. No float atomics: the pose partials
+// equal the full walk's bit for bit, and a gradient and a tracking run
+// repeat bit for bit.
 //
 // fused_probe: the forward's walk; each thread keeps, per 32 slots, a bit
 // mask of the slots that reach one of its pixels (alpha > 0 at a live
@@ -60,19 +76,13 @@ namespace gsl {
 constexpr int N_PROJ = 7;   // staged rows: u, v, ca, cb, cc, qz, opacity*ok
 constexpr int N_ISO = 5;    // record rows read: x, y, z, s2, opacity
 constexpr int N_SUMS = 6;   // per-slot sums of the backward
-constexpr int FUSED_FLUSH = 32;  // slots whose warp partials are held at once
-constexpr int N_WARPS_T = RAST_THREADS / 32;
 
-// Threads 0..CHUNK-1 project slot col0 + threadIdx.x with the current
-// camera into s_p (and, with KEEP_REC, copy its record rows into s_rec).
-template <bool KEEP_REC>
-__device__ __forceinline__ void stage_projected(
-        const float* __restrict__ slot3d, long long col0, long long m_pad,
-        const Cam& cam, float near_p, float far_p, float (*s_p)[CHUNK],
-        float (*s_rec)[CHUNK]) {
-    const int j = threadIdx.x;
-    if (j >= CHUNK) return;
-    const long long col = col0 + j;
+// Slot col projected with the current camera: out = [u, v, ca, cb, cc,
+// qz, opacity * ok] (reads at or past M_pad return 0).
+__device__ __forceinline__ void project_slot(const float* __restrict__ slot3d,
+                                             long long col, long long m_pad,
+                                             const Cam& cam, float near_p,
+                                             float far_p, float out[N_PROJ]) {
     float r[N_ISO];
 #pragma unroll
     for (int k = 0; k < N_ISO; ++k)
@@ -81,12 +91,20 @@ __device__ __forceinline__ void stage_projected(
     float p8[8];
     project8_rows(p, near_p, far_p, p8);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) s_p[k][j] = p8[k];
-    s_p[6][j] = (p8[7] != 0.0f) ? p8[6] : 0.0f;
-    if (KEEP_REC) {
+    for (int k = 0; k < 6; ++k) out[k] = p8[k];
+    out[6] = (p8[7] != 0.0f) ? p8[6] : 0.0f;
+}
+
+// Threads 0..CHUNK-1 project slot col0 + threadIdx.x into s_p.
+__device__ __forceinline__ void stage_projected(
+        const float* __restrict__ slot3d, long long col0, long long m_pad,
+        const Cam& cam, float near_p, float far_p, float (*s_p)[CHUNK]) {
+    const int j = threadIdx.x;
+    if (j >= CHUNK) return;
+    float o[N_PROJ];
+    project_slot(slot3d, col0 + j, m_pad, cam, near_p, far_p, o);
 #pragma unroll
-        for (int k = 0; k < N_ISO; ++k) s_rec[k][j] = r[k];
-    }
+    for (int k = 0; k < N_PROJ; ++k) s_p[k][j] = o[k];
 }
 
 struct TileWalk {
@@ -138,8 +156,7 @@ fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
         // staged chunk of the previous round
         if (__syncthreads_or(alive) == 0) break;
         const long long col0 = (long long)tw.base + (long long)c * CHUNK;
-        stage_projected<false>(slot3d, col0, m_pad, cam, near_p, far_p, s_p,
-                               nullptr);
+        stage_projected(slot3d, col0, m_pad, cam, near_p, far_p, s_p);
         __syncthreads();
         const int j_lo = max(tw.start - (int)col0, 0);
         const int j_hi = min(tw.end - (int)col0, CHUNK);
@@ -175,12 +192,16 @@ __global__ void __launch_bounds__(RAST_THREADS)
 fused_bwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
                  const float* __restrict__ slot3d,
                  const int* __restrict__ chunks_done,
-                 const float* __restrict__ px_in, float* __restrict__ scratch,
-                 int n_tx, long long m_pad, long long plane, int wp,
-                 float near_p, float far_p) {
-    __shared__ float s_p[N_PROJ][CHUNK];
-    __shared__ float s_rec[N_ISO][CHUNK];
-    __shared__ float s_part[N_WARPS_T][FUSED_FLUSH][N_SUMS + 1];
+                 const float* __restrict__ px_in, float* __restrict__ sums,
+                 float* __restrict__ scratch, int n_tx, long long m_pad,
+                 long long plane, int wp, float near_p, float far_p) {
+    // each warp's 32 staged slots: projected rows (opacity * ok) and box
+    __shared__ float s_p[N_RAST_WARPS][N_PROJ][32];
+    __shared__ int s_box[N_RAST_WARPS][4][32];
+    // each warp's sums of the met slots of its group, per slot
+    __shared__ float s_acc[N_RAST_WARPS][N_SUMS][32];
+    __shared__ float s_grp[N_RAST_WARPS][12];  // 32 slots' joined partials
+    extern __shared__ float4 s_dyn[];  // the pending multi-warp sums
 
     const TileWalk tw = tile_walk(meta, n_tx);
     const int tid = threadIdx.x;
@@ -188,6 +209,11 @@ fused_bwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
     const int warp = tid >> 5;
     const int n_done = chunks_done[tw.tile];
     const Cam cam = load_cam(cam_p);
+    const float x0 = (float)(tw.tj * TILE_W);
+    const float y0 = (float)((tw.ti + meta[0]) * TILE_H);
+
+    const Pending<N_SUMS> pd = pending_init<N_SUMS>(s_dyn);
+    __syncthreads();
 
     float py[PX_PER_THREAD], t[PX_PER_THREAD], run[PX_PER_THREAD];
     float gd[PX_PER_THREAD], ga[PX_PER_THREAD], g_tot[PX_PER_THREAD];
@@ -202,115 +228,176 @@ fused_bwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
         ga[p] = px_in[3 * plane + pix];
         g_tot[p] = gd[p] * px_in[pix] + ga[p] * px_in[plane + pix];
     }
+
+    // Each warp walks the whole segment on its own, 32 slots at a time; the
+    // warps meet only at the pose chain after the walk.
+    const int n_groups = n_done * (CHUNK / 32);
+    int n_multi = 0;  // multi-warp slots before this group (every warp's)
+    int dcnt = 0;     // lane u < N_RAST_WARPS: warp u's deposits before it
+    for (int q = 0; q < n_groups; ++q) {
+        const long long c0 = (long long)tw.base + (long long)q * 32;
+        const long long cl = c0 + lane;
+        __syncwarp();  // the previous group's readers are done
+        // project slot cl in this lane with the current camera (opacity
+        // folded with ok), with its footprint box
+        {
+            float o[N_PROJ];
+            project_slot(slot3d, cl, m_pad, cam, near_p, far_p, o);
+#pragma unroll
+            for (int k = 0; k < N_PROJ; ++k) s_p[warp][k][lane] = o[k];
+        }
+        PixBox bx = {TILE_W, -1, TILE_H, -1};
+        const bool in_seg = cl >= tw.start && cl < tw.end;
+        if (in_seg)
+            bx = footprint_box(s_p[warp][0][lane], s_p[warp][1][lane],
+                               s_p[warp][2][lane], s_p[warp][3][lane],
+                               s_p[warp][4][lane], s_p[warp][6][lane], x0, y0);
+        s_box[warp][0][lane] = bx.c_lo;
+        s_box[warp][1][lane] = bx.c_hi;
+        s_box[warp][2][lane] = bx.r_lo;
+        s_box[warp][3][lane] = bx.r_hi;
+        const unsigned wset = box_warps(bx);
+        const unsigned met = __ballot_sync(0xffffffffu, (wset >> warp) & 1u);
+        if (warp == 0 && in_seg && wset == 0u) {
+            // no pixel of the tile can take this slot: its sums are 0
+#pragma unroll
+            for (int k = 0; k < N_SUMS; ++k) sums[k * m_pad + cl] = 0.0f;
+        }
+        __syncwarp();
+        unsigned todo = met;
+        while (todo != 0u) {
+            const int b = __ffs(todo) - 1;
+            todo &= todo - 1u;
+            float acc[N_SUMS];
+#pragma unroll
+            for (int k = 0; k < N_SUMS; ++k) acc[k] = 0.0f;
+            if (tw.col >= s_box[warp][0][b] && tw.col <= s_box[warp][1][b]) {
+                const int p_lo = s_box[warp][2][b] - tw.row0;
+                const int p_hi = s_box[warp][3][b] - tw.row0;
+                const float dx = tw.px - s_p[warp][0][b];
+                const float v = s_p[warp][1][b];
+                const float ca = s_p[warp][2][b], cb = s_p[warp][3][b];
+                const float cc = s_p[warp][4][b], qz = s_p[warp][5][b];
+                const float opa = s_p[warp][6][b];
+#pragma unroll
+                for (int p = 0; p < PX_PER_THREAD; ++p) {
+                    // a row outside the box (the same for the warp)
+                    if (p < p_lo || p > p_hi) continue;
+                    const float dy = py[p] - v;
+                    const float alpha = tile_alpha(dx, dy, ca, cb, cc, opa);
+                    // a dead pixel or a gated-off pair changes nothing
+                    const bool act = t[p] > T_EPS && alpha != 0.0f;
+                    const float one_minus = 1.0f - alpha;
+                    const float t_incl = t[p] * one_minus;
+                    const bool live = t_incl > T_EPS;
+                    const float w = live ? t[p] * alpha : 0.0f;
+                    const float phi = gd[p] * qz + ga[p];
+                    const float run_p = run[p] + w * phi;
+                    const float suffix = g_tot[p] - run_p;
+                    const float inv_om =
+                        1.0f / fmaxf(one_minus, ONE_MINUS_ALPHA_MAX);
+                    float d_alpha = t[p] * phi - suffix * inv_om;
+                    d_alpha = live ? d_alpha : 0.0f;
+                    d_alpha = (alpha >= ALPHA_MAX) ? 0.0f : d_alpha;
+                    const float ds = d_alpha * (-alpha);
+                    acc[0] = act ? acc[0] + ds * dx : acc[0];
+                    acc[1] = act ? acc[1] + ds * dy : acc[1];
+                    acc[2] = act ? acc[2] + ds * dx * dx : acc[2];
+                    acc[3] = act ? acc[3] + ds * dx * dy : acc[3];
+                    acc[4] = act ? acc[4] + ds * dy * dy : acc[4];
+                    acc[5] = act ? acc[5] + w * gd[p] : acc[5];
+                    run[p] = act ? run_p : run[p];
+                    t[p] = act ? t_incl : t[p];
+                }
+            }
+            bool nz = false;
+#pragma unroll
+            for (int k = 0; k < N_SUMS; ++k) nz = nz || (acc[k] != 0.0f);
+            if (__any_sync(0xffffffffu, nz)) {
+#pragma unroll
+                for (int k = 0; k < N_SUMS; ++k) {
+#pragma unroll
+                    for (int ofs = 16; ofs > 0; ofs >>= 1)
+                        acc[k] = acc[k]
+                                 + __shfl_down_sync(0xffffffffu, acc[k], ofs);
+                }
+            }
+            if (lane == 0) {
+#pragma unroll
+                for (int k = 0; k < N_SUMS; ++k) s_acc[warp][k][b] = acc[k];
+            }
+        }
+        // each lane finishes its own slot if this warp met it
+        int dix[N_RAST_WARPS], dix_w;
+        const unsigned multi = group_multi(wset, dcnt, dix, dix_w);
+        __syncwarp();
+        if ((met >> lane) & 1u) {
+            float acc[N_SUMS], s[N_SUMS];
+#pragma unroll
+            for (int k = 0; k < N_SUMS; ++k) acc[k] = s_acc[warp][k][lane];
+            bool done = true;
+            if (__popc(wset) == 1) {
+                // this warp alone meets the slot: 0 + acc is its sum
+#pragma unroll
+                for (int k = 0; k < N_SUMS; ++k) s[k] = 0.0f + acc[k];
+            } else {
+                done = pending_deposit(
+                    pd, warp, n_multi + __popc(multi & ((1u << lane) - 1u)),
+                    wset, dix_w, dix, acc, s);
+            }
+            if (done) {
+#pragma unroll
+                for (int k = 0; k < N_SUMS; ++k) sums[k * m_pad + cl] = s[k];
+            }
+        }
+        n_multi += __popc(multi);
+    }
+    __syncthreads();  // every walked slot's sums are in `sums`
+
+    // The pose chain: 32 slots per warp, 8 groups at a time, joined in
+    // walk order (the order of a walk in which every warp met every slot).
     float blk[12];  // the tile's partials, held by thread 0
 #pragma unroll
     for (int k = 0; k < 12; ++k) blk[k] = 0.0f;
-
-    for (int c = 0; c < n_done; ++c) {
-        const long long col0 = (long long)tw.base + (long long)c * CHUNK;
-        __syncthreads();  // the previous chunk's readers are done
-        stage_projected<true>(slot3d, col0, m_pad, cam, near_p, far_p, s_p,
-                              s_rec);
-        __syncthreads();
-        const int j_lo = max(tw.start - (int)col0, 0);
-        const int j_hi = min(tw.end - (int)col0, CHUNK);
-        for (int sb = 0; sb < CHUNK; sb += FUSED_FLUSH) {
-            for (int jj = 0; jj < FUSED_FLUSH; ++jj) {
-                const int j = sb + jj;
-                float acc[N_SUMS];
+    for (int q0 = 0; q0 < n_groups; q0 += N_RAST_WARPS) {
+        const int q = q0 + warp;
+        float part[12];
 #pragma unroll
-                for (int k = 0; k < N_SUMS; ++k) acc[k] = 0.0f;
-                if (j >= j_lo && j < j_hi) {
-                    const float dx = tw.px - s_p[0][j];
-                    const float v = s_p[1][j];
-                    const float ca = s_p[2][j], cb = s_p[3][j];
-                    const float cc = s_p[4][j], qz = s_p[5][j];
-                    const float opa = s_p[6][j];
+        for (int k = 0; k < 12; ++k) part[k] = 0.0f;
+        const long long cl = (long long)tw.base + (long long)q * 32 + lane;
+        if (q < n_groups && cl >= tw.start && cl < tw.end) {
+            float s[N_SUMS];
+            bool any = false;
 #pragma unroll
-                    for (int p = 0; p < PX_PER_THREAD; ++p) {
-                        if (!(t[p] > T_EPS)) continue;
-                        const float dy = py[p] - v;
-                        const float alpha = tile_alpha(dx, dy, ca, cb, cc, opa);
-                        if (alpha == 0.0f) continue;
-                        const float one_minus = 1.0f - alpha;
-                        const float t_incl = t[p] * one_minus;
-                        const bool live = t_incl > T_EPS;
-                        const float w = live ? t[p] * alpha : 0.0f;
-                        const float phi = gd[p] * qz + ga[p];
-                        run[p] = run[p] + w * phi;
-                        const float suffix = g_tot[p] - run[p];
-                        const float inv_om =
-                            1.0f / fmaxf(one_minus, ONE_MINUS_ALPHA_MAX);
-                        float d_alpha = t[p] * phi - suffix * inv_om;
-                        d_alpha = live ? d_alpha : 0.0f;
-                        d_alpha = (alpha >= ALPHA_MAX) ? 0.0f : d_alpha;
-                        const float ds = d_alpha * (-alpha);
-                        acc[0] = acc[0] + ds * dx;
-                        acc[1] = acc[1] + ds * dy;
-                        acc[2] = acc[2] + ds * dx * dx;
-                        acc[3] = acc[3] + ds * dx * dy;
-                        acc[4] = acc[4] + ds * dy * dy;
-                        acc[5] = acc[5] + w * gd[p];
-                        t[p] = t_incl;
-                    }
-                }
-                bool nz = false;
-#pragma unroll
-                for (int k = 0; k < N_SUMS; ++k) nz = nz || (acc[k] != 0.0f);
-                if (__any_sync(0xffffffffu, nz)) {
-#pragma unroll
-                    for (int k = 0; k < N_SUMS; ++k) {
-#pragma unroll
-                        for (int ofs = 16; ofs > 0; ofs >>= 1)
-                            acc[k] = acc[k]
-                                     + __shfl_down_sync(0xffffffffu, acc[k], ofs);
-                    }
-                }
-                if (lane == 0) {
-#pragma unroll
-                    for (int k = 0; k < N_SUMS; ++k) s_part[warp][jj][k] = acc[k];
-                }
+            for (int k = 0; k < N_SUMS; ++k) {
+                s[k] = sums[k * m_pad + cl];
+                any = any || (s[k] != 0.0f);
             }
-            __syncthreads();
-            if (warp == 0) {
-                // lane jj: slot sb + jj's sums over the 8 warps, in order,
-                // then its pose chain
-                const int j = sb + lane;
-                float part[12];
-#pragma unroll
-                for (int k = 0; k < 12; ++k) part[k] = 0.0f;
-                if (j >= j_lo && j < j_hi) {
-                    float s[N_SUMS];
-                    bool any = false;
-#pragma unroll
-                    for (int k = 0; k < N_SUMS; ++k) {
-                        float v = 0.0f;
-#pragma unroll
-                        for (int w = 0; w < N_WARPS_T; ++w)
-                            v = v + s_part[w][lane][k];
-                        s[k] = v;
-                        any = any || (v != 0.0f);
-                    }
-                    if (any) {
-                        const Proj pr = project_parts(
-                            s_rec[0][j], s_rec[1][j], s_rec[2][j],
-                            s_rec[3][j], s_rec[4][j], cam);
-                        pose_chain(pr, cam, 0.0f, s[0], s[1], s[2], s[3],
-                                   s[4], s[5], pr.u, pr.v, part);
-                    }
-                }
-                // the FLUSH slots' partials joined by a fixed shuffle tree
-#pragma unroll
-                for (int k = 0; k < 12; ++k) {
-                    float v = part[k];
-#pragma unroll
-                    for (int ofs = 16; ofs > 0; ofs >>= 1)
-                        v = v + __shfl_down_sync(0xffffffffu, v, ofs);
-                    if (lane == 0) blk[k] = blk[k] + v;
-                }
+            if (any) {
+                const Proj pr = project_parts(
+                    slot3d[cl], slot3d[m_pad + cl], slot3d[2 * m_pad + cl],
+                    slot3d[3 * m_pad + cl], slot3d[4 * m_pad + cl], cam);
+                pose_chain(pr, cam, 0.0f, s[0], s[1], s[2], s[3], s[4], s[5],
+                           pr.u, pr.v, part);
             }
-            __syncthreads();  // s_part is reused by the next FLUSH slots
         }
+        // the 32 slots' partials joined by a fixed shuffle tree
+#pragma unroll
+        for (int k = 0; k < 12; ++k) {
+            float v = part[k];
+#pragma unroll
+            for (int ofs = 16; ofs > 0; ofs >>= 1)
+                v = v + __shfl_down_sync(0xffffffffu, v, ofs);
+            if (lane == 0) s_grp[warp][k] = v;
+        }
+        __syncthreads();
+        if (tid == 0) {
+            for (int w = 0; w < N_RAST_WARPS && q0 + w < n_groups; ++w) {
+#pragma unroll
+                for (int k = 0; k < 12; ++k) blk[k] = blk[k] + s_grp[w][k];
+            }
+        }
+        __syncthreads();
     }
     if (tid == 0) {
 #pragma unroll
@@ -326,7 +413,7 @@ fused_probe_kernel(const int* __restrict__ meta,
                    float* __restrict__ contrib, int* __restrict__ chunks_done,
                    int n_tx, long long m_pad, float near_p, float far_p) {
     __shared__ float s_p[N_PROJ][CHUNK];
-    __shared__ unsigned s_or[N_WARPS_T][CHUNK / 32];
+    __shared__ unsigned s_or[N_RAST_WARPS][CHUNK / 32];
 
     const TileWalk tw = tile_walk(meta, n_tx);
     const int tid = threadIdx.x;
@@ -349,8 +436,7 @@ fused_probe_kernel(const int* __restrict__ meta,
         // s_p and s_or of the previous round
         if (__syncthreads_or(alive) == 0) break;
         const long long col0 = (long long)tw.base + (long long)c * CHUNK;
-        stage_projected<false>(slot3d, col0, m_pad, cam, near_p, far_p, s_p,
-                               nullptr);
+        stage_projected(slot3d, col0, m_pad, cam, near_p, far_p, s_p);
         __syncthreads();
         const int j_lo = max(tw.start - (int)col0, 0);
         const int j_hi = min(tw.end - (int)col0, CHUNK);
@@ -382,7 +468,7 @@ fused_probe_kernel(const int* __restrict__ meta,
         if (tid < CHUNK && tid >= j_lo && tid < j_hi) {
             unsigned any = 0u;
 #pragma unroll
-            for (int w = 0; w < N_WARPS_T; ++w) any |= s_or[w][tid >> 5];
+            for (int w = 0; w < N_RAST_WARPS; ++w) any |= s_or[w][tid >> 5];
             contrib[col0 + tid] = ((any >> (tid & 31)) & 1u) ? 1.0f : 0.0f;
         }
     }
@@ -409,18 +495,24 @@ extern "C" int gsl_fused_fwd(const void* meta, const void* cam,
 
 extern "C" int gsl_fused_bwd(const void* meta, const void* cam,
                              const void* slot3d, const void* chunks_done,
-                             const void* px_in, void* scratch, void* out,
+                             const void* px_in, void* sums, void* scratch,
+                             void* out,
                              int n_ty, int n_tx, long long m_pad, float near_p,
                              float far_p, void* stream) {
     const int n_tiles = n_ty * n_tx;
     if (n_tiles <= 0) return (int)cudaErrorInvalidValue;
     const int wp = n_tx * gsl::TILE_W;
     const long long plane = (long long)n_ty * gsl::TILE_H * wp;
-    gsl::fused_bwd_kernel<<<n_tiles, gsl::RAST_THREADS, 0,
+    constexpr size_t dyn = gsl::pending_bytes<gsl::N_SUMS>();
+    const cudaError_t attr = cudaFuncSetAttribute(
+        gsl::fused_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dyn);
+    if (attr != cudaSuccess) return (int)attr;
+    gsl::fused_bwd_kernel<<<n_tiles, gsl::RAST_THREADS, dyn,
                             (cudaStream_t)stream>>>(
         (const int*)meta, (const float*)cam, (const float*)slot3d,
-        (const int*)chunks_done, (const float*)px_in, (float*)scratch, n_tx,
-        m_pad, plane, wp, near_p, far_p);
+        (const int*)chunks_done, (const float*)px_in, (float*)sums,
+        (float*)scratch, n_tx, m_pad, plane, wp, near_p, far_p);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
     return gsl::launch_sum12((const float*)scratch, (float*)out, n_tiles,

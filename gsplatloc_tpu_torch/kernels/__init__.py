@@ -52,7 +52,7 @@ _SIGNATURES = {
     "gsl_rasterize_fwd": [_P, _P, _P, _P, _I, _I, _L, _P],
     "gsl_rasterize_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
     "gsl_fused_fwd": [_P, _P, _P, _P, _P, _I, _I, _L, _F, _F, _P],
-    "gsl_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _F, _F, _P],
+    "gsl_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _F, _F, _P],
     "gsl_fused_probe": [_P, _P, _P, _P, _P, _I, _I, _L, _F, _F, _P],
 }
 

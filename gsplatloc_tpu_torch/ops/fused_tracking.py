@@ -502,12 +502,15 @@ def fused_bwd(slot3d, meta, cam, chunks_done, px_in, n_ty, n_tx, near,
     """(12,) pose partials [dR row-major, dt] of the forward walk's outputs
     (see `_fused_bwd_plain`). CUDA tensor: the hand-written kernel
     (csrc/fused_tracking.cu fused_bwd_kernel, which replaces the Pallas
-    _fused_bwd_kernel; bound by operations — the forward's block shape, 6
-    per-slot sums reduced per thread, per warp by shuffles, then over the
-    8 warps in a fixed order, the pose chain per slot, the tile's partials
-    in slot order and the (n_tiles, 12) scratch summed in a fixed order in
+    _fused_bwd_kernel; bound by operations — the forward's block shape,
+    each warp walking the segment on its own and each slot only over the
+    pixels of its footprint box (rasterize_tiles._footprint_box of its
+    projected rows), 6 per-slot sums reduced per thread, per warp by
+    shuffles, then over the warps that met the slot in a fixed order into
+    a (6, M_pad) scratch, the pose chain per slot, the tile's partials in
+    slot order and the (n_tiles, 12) scratch summed in a fixed order in
     double, without atomics). CPU tensor: the plain version
-    `_fused_bwd_plain`."""
+    `_fused_bwd_plain`, which walks every pixel."""
     if not slot3d.is_cuda:
         return _fused_bwd_plain(slot3d, meta, cam, chunks_done, px_in, n_ty,
                                 n_tx, near, far)
@@ -522,13 +525,15 @@ def fused_bwd(slot3d, meta, cam, chunks_done, px_in, n_ty, n_tx, near,
                     dtype=torch.int32, device=dev)
     kernels.require(px_in, "px_in", (4, n_ty * TILE_H, n_tx * TILE_W),
                     device=dev)
+    sums = torch.empty((6, mp), dtype=F32, device=dev)  # per walked slot
     scratch = torch.empty((n_tiles, 12), dtype=F32, device=dev)
     out = torch.empty((12,), dtype=F32, device=dev)
     lib = kernels.load()
     err = lib.gsl_fused_bwd(meta.data_ptr(), cam.data_ptr(),
                             slot3d.data_ptr(), chunks_done.data_ptr(),
-                            px_in.data_ptr(), scratch.data_ptr(),
-                            out.data_ptr(), n_ty, n_tx, mp, float(near),
+                            px_in.data_ptr(), sums.data_ptr(),
+                            scratch.data_ptr(), out.data_ptr(), n_ty, n_tx,
+                            mp, float(near),
                             float(far), kernels.stream_ptr())
     kernels.check(err, "fused_bwd")
     fused_bwd.launches += 1

@@ -12,7 +12,8 @@ gathered into a (16, M_pad) field-major buffer:
   6 opacity, 7 red, 8 green, 9 blue, 10..15 zero.
 
 Kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu), each with its
-plain PyTorch version here:
+plain PyTorch version here (and `_footprint_box`, the plain form of the
+per-slot pixel box to which the backward limits its walk):
   rasterize_fwd  replaces the Pallas _fwd_kernel  plain: _composite_fwd_plain
   rasterize_bwd  replaces the Pallas _bwd_kernel  plain: _composite_bwd_plain
 
@@ -98,6 +99,57 @@ def _chunk_alpha(records, col0, starts, ends, px, py):
     in_seg = (idx >= starts[:, None]) & (idx < ends[:, None])
     ok = in_seg[:, :, None] & (sigma >= 0.0) & (alpha >= ALPHA_MIN)
     return torch.where(ok, alpha, 0.0), dx, dy, in_seg, rec
+
+
+# margins of the footprint box (csrc/rasterize.cuh footprint_box says why)
+BOX_DET_REL = 2.0 ** -20
+BOX_L_REL = 2.0 ** -20
+BOX_KAPPA_MAX = 2.0 ** 16
+BOX_KAPPA_TERM = 2.0 ** -18
+BOX_REL = 2.0 ** -16
+
+
+def _footprint_box(mx, my, ca, cb, cc, opa, x0, y0):
+    """Tile-local pixel box (c_lo, c_hi, r_lo, r_hi), inclusive and clamped
+    to the tile, of each slot's alpha-gate footprint: every pixel centre
+    outside it gets alpha 0 from `_chunk_alpha`'s gates. The plain form of
+    csrc/rasterize.cuh footprint_box, in its f32 operation order (the
+    margins and the cases are argued there). mx, my, ca, cb, cc, opa: f32
+    tensors of one shape (record fields 0-4 and 6; the full-tile walks'
+    projected rows with opacity * ok); x0, y0: the tile's first pixel
+    column and row, broadcastable. An empty box is (TILE_W, -1, TILE_H, -1),
+    the whole tile (0, TILE_W - 1, 0, TILE_H - 1)."""
+    finite = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(ca)
+              & torch.isfinite(cb) & torch.isfinite(cc) & torch.isfinite(opa))
+    amin = torch.tensor(ALPHA_MIN, dtype=F32)
+    k1 = ca * cc
+    det_lo = (k1 - cb * cb) - k1 * BOX_DET_REL
+    pd = (ca > 0.0) & (cc > 0.0) & (det_lo > 0.0)
+    inv_det = 1.0 / det_lo
+    kappa = k1 * inv_det
+    lf = torch.log(opa * 255.0)
+    s = (lf + lf * BOX_L_REL + BOX_L_REL) * (1.0 + kappa * BOX_KAPPA_TERM)
+    s2 = 2.0 * s * inv_det
+    hx = torch.sqrt(s2 * cc)
+    hy = torch.sqrt(s2 * ca)
+    ex = hx + hx * BOX_REL + (mx.abs() + x0 + 1.0) * BOX_REL
+    ey = hy + hy * BOX_REL + (my.abs() + y0 + 1.0) * BOX_REL
+    c_lo = torch.ceil(mx - ex - 0.5 - x0).clamp_min(0.0)
+    c_hi = torch.floor(mx + ex - 0.5 - x0).clamp_max(TILE_W - 1.0)
+    r_lo = torch.ceil(my - ey - 0.5 - y0).clamp_min(0.0)
+    r_hi = torch.floor(my + ey - 0.5 - y0).clamp_max(TILE_H - 1.0)
+    whole = ~finite | ~pd | ~(kappa <= BOX_KAPPA_MAX)
+    empty = finite & (opa < amin)
+    hit = (c_lo <= c_hi) & (r_lo <= r_hi)
+    empty = empty | (~whole & ~hit)
+    whole = whole & ~empty
+
+    def pick(v, whole_v, empty_v):
+        v = torch.where(whole, whole_v, torch.nan_to_num(v))
+        return torch.where(empty, empty_v, v).long()
+
+    return (pick(c_lo, 0.0, TILE_W), pick(c_hi, TILE_W - 1.0, -1.0),
+            pick(r_lo, 0.0, TILE_H), pick(r_hi, TILE_H - 1.0, -1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -276,10 +328,12 @@ def rasterize_bwd(records, meta, chunks_done, px_in, n_ty, n_tx):
     """Per-slot gradients (16, M_pad) of the forward walk's outputs (see
     `_composite_bwd_plain` for the rows). CUDA tensor: the hand-written
     kernel (csrc/rasterize_bwd.cu, which replaces the Pallas _bwd_kernel;
-    bound by operations — the forward's block shape, the 10 per-slot sums
-    reduced per thread, per warp by shuffles, then over the 8 warps in a
-    fixed order, without atomics). CPU tensor: the plain version
-    `_composite_bwd_plain`."""
+    bound by bytes — the forward's block shape, each warp walking the
+    segment on its own and each slot only over the pixels of its footprint
+    box (`_footprint_box`), the 10 per-slot sums reduced per thread, per
+    warp by shuffles, then over the warps that met the slot in a fixed
+    order, without atomics). CPU tensor: the plain version
+    `_composite_bwd_plain`, which walks every pixel."""
     if not records.is_cuda:
         return _composite_bwd_plain(records, meta, chunks_done, px_in,
                                     n_ty, n_tx)

@@ -224,6 +224,15 @@ def test_every_kernel_entry_point_has_a_signature_and_a_source():
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
 
+@pytest.mark.parametrize("name", sorted(kernels._SIGNATURES))
+def test_entry_point_signature_matches_its_c_parameters(name):
+    """ctypes passes exactly the C prototype's parameters, one argtype
+    each (a missing one shifts every argument after it)."""
+    text = "".join(p.read_text() for p in kernels.sources())
+    head = text.split(f'extern "C" int {name}(', 1)[1].split(")", 1)[0]
+    assert len(kernels._SIGNATURES[name]) == head.count(",") + 1
+
+
 def test_subtile_backward_wrappers_refuse_what_the_kernels_do_not_take():
     """On a CUDA tensor the new wrappers check device, dtype, shape and
     contiguity before they launch; here (no card) a meta tensor on the
