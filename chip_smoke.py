@@ -14,12 +14,12 @@ Phases (each raises on failure; nothing carries on on the CPU):
                timings and the least time the card could take for the same
                work; the index select against its plain version and its
                gathered records against the records select's, both at
-               K=16 and at K=12, bit for bit; for the two backward walks
-               that skip the pixels outside each slot's footprint box (K6b,
-               K7b), every gate hit of the walked chunks inside its box
-               (`_footprint_box`), the pairs the boxes hold, how the walk's
-               slots fall on the 8 warps of a tile, and the kernels'
-               registers and spills from the build's -Xptxas -v.
+               K=16 and at K=12, bit for bit; for the four tile walks
+               that skip the pixels outside each slot's footprint box (K6a,
+               K6b, K7a, K7b), every gate hit of the walked chunks inside
+               its box (`_footprint_box`), the pairs the boxes hold, how
+               the walk's slots fall on the 8 warps of a tile, and the
+               kernels' registers and spills from the build's -Xptxas -v.
   4. main    — one displaced synthetic RGB-D frame pair prepared
                (_assemble_pair) and pose-tracked (optimize_pose, default
                K-cover configuration, max_steps=300), run twice; launch
@@ -592,9 +592,10 @@ def footprint_pairs(records, meta, cd, n_tx):
 
 
 def box_check(records, meta, cd, n_tx):
-    """The footprint cull of K6b and K7b against the gates, over every chunk
-    each tile's walk reached. records: fields 0-4 and 6 as the kernels read
-    them (for the full-tile walk the projected rows with opacity * ok).
+    """The footprint cull of the tile walks (K6a, K6b, K7a, K7b) against the
+    gates, over every chunk each tile's walk reached. records: fields 0-4
+    and 6 as the kernels read them (for the full-tile walks the projected
+    rows with opacity * ok).
     Returns a dict: `hits`, the (slot, pixel) pairs that pass
     `_chunk_alpha`'s gates, dead pixels included; `outside`, those of them
     outside their slot's `_footprint_box`, which must be 0; `box_pairs`,
@@ -748,6 +749,10 @@ def check_rasterize(pair, dev):
         raise RuntimeError(f"footprint count {needed} below the gate hits "
                            f"{stats['hits']}")
     del out_p
+    # K6a and K6b walk the same chunks with the same boxes
+    cull = box_check(packed, meta, cd_k, n_tx)
+    regs, spill_st, spill_ld = ptxas_usage("rasterize_fwd_kernel")
+    log_cull("rasterize_fwd", cull, needed, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: rt.rasterize_fwd(packed, meta, n_ty, n_tx), 20)
     entries.append(kernel_entry(
         "rasterize_fwd", "gsplatloc_tpu_torch/csrc/rasterize_fwd.cu",
@@ -756,7 +761,9 @@ def check_rasterize(pair, dev):
               + 4 * (cd_k.numel() + meta.numel()),
               needed * OPS_RAST_EVAL + stats["hits"] * OPS_RAST_FWD_HIT),
         walked_slots=walked, walked_pairs=stats["pairs"],
-        footprint_pairs=needed, hits=stats["hits"]))
+        footprint_pairs=needed, hits=stats["hits"],
+        box_pairs=cull["box_pairs"], gate_hits_outside_box=cull["outside"],
+        regs=regs, spill_stores=spill_st, spill_loads=spill_ld))
 
     # cotangents of the five images
     d_acc = out_k[3].clone().requires_grad_(True)
@@ -794,7 +801,6 @@ def check_rasterize(pair, dev):
                            f"rows {rel_rows}, zero-fill {zeros_equal}, "
                            f"pad rows zero {pad_zero}, repeatable {repeat}")
     del g_k2, g_p
-    cull = box_check(packed, meta, cd_k, n_tx)
     regs, spill_st, spill_ld = ptxas_usage("rasterize_bwd_kernel")
     log_cull("rasterize_bwd", cull, needed, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: rt.rasterize_bwd(packed, meta, cd_k, px_in, n_ty,
@@ -861,6 +867,11 @@ def check_fused_tracking(pair, dev):
     if needed < stats["hits"]:
         raise RuntimeError(f"footprint count {needed} below the gate hits "
                            f"{stats['hits']}")
+    # K7a and K7b walk the same chunks with the same boxes
+    cull = box_check(proj, meta, cd_k, n_tx)
+    del proj
+    regs, spill_st, spill_ld = ptxas_usage("fused_fwd_kernel")
+    log_cull("fused_fwd", cull, needed, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: ft.fused_fwd(slot, meta, cam, n_ty, n_tx, NEAR,
                                       FAR), 20)
     rec_bytes = walked * 5 * 4  # the five record rows a walk reads
@@ -872,7 +883,9 @@ def check_fused_tracking(pair, dev):
               walked * OPS_FUSED_SLOT + needed * OPS_RAST_EVAL
               + stats["hits"] * OPS_FUSED_FWD_HIT),
         walked_slots=walked, walked_pairs=stats["pairs"],
-        footprint_pairs=needed, hits=stats["hits"]))
+        footprint_pairs=needed, hits=stats["hits"],
+        box_pairs=cull["box_pairs"], gate_hits_outside_box=cull["outside"],
+        regs=regs, spill_stores=spill_st, spill_loads=spill_ld))
 
     # cotangents of depth_acc and alpha from the tracking loss
     d_acc = out_k[0].clone().requires_grad_(True)
@@ -900,8 +913,6 @@ def check_fused_tracking(pair, dev):
     if not (rel <= TOL_BWD_REL and repeat):
         raise RuntimeError(f"fused_bwd disagrees: rel {rel}, repeatable "
                            f"{repeat}")
-    cull = box_check(proj, meta, cd_k, n_tx)
-    del proj
     regs, spill_st, spill_ld = ptxas_usage("fused_bwd_kernel")
     log_cull("fused_bwd", cull, needed, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: ft.fused_bwd(slot, meta, cam, cd_k, px_in, n_ty,

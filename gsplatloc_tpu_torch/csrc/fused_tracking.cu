@@ -13,27 +13,40 @@
 // opacity and of the pixel images, one write of the outputs), operations
 // for fused_bwd (the pose chain of every slot with a nonzero sum), with the
 // per-pair operations counted only over the (slot, pixel) pairs inside each
-// slot's alpha-gate footprint. fused_fwd and fused_probe are far slower
-// than their bounds: each walked slot meets all 2048 pixels of its 16x128
-// tile, as the reference's kernels do. fused_bwd walks only the pixels of
+// slot's alpha-gate footprint. fused_probe is far slower than its bound:
+// each walked slot meets all 2048 pixels of its 16x128 tile, as the
+// reference's kernel does. fused_fwd and fused_bwd walk only the pixels of
 // each slot's footprint box (below).
 //
-// Design of fused_fwd and fused_probe: the general rasterizer's tile
-// layout (rasterize.cuh): one block per tile, 256 threads of 8 pixels,
-// 128-slot chunks from floor(start/128)*128, a block vote for the
-// chunk-granular stop. While a chunk is staged, threads 0-127 project one
-// slot each with the current camera (project_parts / project8_rows of
-// project.cuh, the plain version's operation order) into shared memory;
-// the validity row is folded into the opacity (0 unless ok), which gates
-// alpha to 0 exactly as the plain version's explicit gate does. Reads at
-// or past M_pad return 0.
-// Every thread runs the plain version's sequential per-pixel recurrence:
-// t_incl = T*(1-alpha), w = T*alpha while t_incl > T_EPS, payload [qz, 1].
-// A dead pixel or a gated-off (slot, pixel) pair is an exact no-op and is
-// skipped. (A whole-slot skip on a zero opacity, also exact, made nvcc 12.8
-// drop most of the forward's contributions at -O3; it is left out.) The
-// reference's Hillis-Steele scans, MXU payload products and speculative
+// In all three, the validity row is folded into the opacity (0 unless
+// ok), which gates alpha to 0 exactly as the plain version's explicit gate
+// does, and every pixel runs the plain version's sequential recurrence:
+// t_incl = T*(1-alpha), w = T*alpha while t_incl > T_EPS, payload [qz, 1]
+// in the forward. A dead pixel or a gated-off (slot, pixel) pair is an
+// exact no-op and is skipped. Projection is project_parts / project8_rows
+// of project.cuh, in the plain version's operation order, with the
+// current camera; reads at or past M_pad return 0. The reference's
+// Hillis-Steele scans, MXU payload products and speculative
 // double-buffered DMA have no counterpart: they exist only for Mosaic.
+//
+// fused_fwd walks as rasterize_fwd.cu does (whose note says more): each
+// warp on its own over the tile's segment, 32 slots at a time, its lanes
+// projecting the 32 slots into the warp's part of shared memory with
+// their footprint boxes (a slot that fails the ok gate, or whose opacity
+// is below 1/255, has an empty box); the warp walks only the slots whose
+// box meets its 32x8 pixel rectangle, skips the columns and rows outside
+// a box, and stops at the first 128-slot chunk boundary at which none of
+// its pixels is alive. The largest of the 8 warps' stops is the tile's
+// chunks_done, the chunk of the reference's block-wide vote. Every slot
+// is projected by all 8 warps: a block that projects each 128-slot chunk
+// once and then lets its warps walk it needs a barrier per chunk, at
+// which the warps wait for the busiest, and measured slower; so did
+// reading the next 32 slots' rows during the walk. Capped at 64 registers
+// so that 4 blocks share an SM and the 430 tiles of a 1200x680 frame run
+// in one wave. (An earlier forward that skipped a whole slot on a zero
+// opacity was miscompiled by nvcc 12.8 at -O3; an empty box is the same
+// skip, and the kernel is held bit-equal to its plain version at full
+// size.)
 //
 // fused_bwd: each pixel thread carries T and the running sum of w*phi
 // (phi = g_d*qz + g_a); the suffix the adjoint needs is the forward total
@@ -62,12 +75,15 @@
 // equal the full walk's bit for bit, and a gradient and a tracking run
 // repeat bit for bit.
 //
-// fused_probe: the forward's walk; each thread keeps, per 32 slots, a bit
-// mask of the slots that reach one of its pixels (alpha > 0 at a live
-// T_prefix), the warp ORs the masks, and threads 0-127 OR the 8 warps' and
-// write contrib = 1.0 or 0.0 for the chunk's in-segment columns. A block
-// writes only its own segment's walked columns; the wrapper zero-fills the
-// buffer.
+// fused_probe: the block-synchronous walk of the reference: one block per
+// tile, 128-slot chunks from floor(start/128)*128 projected by threads
+// 0-127 into shared memory, a block vote for the chunk-granular stop (the
+// chunks fused_fwd's warps walk, since T only falls). Each thread keeps,
+// per 32 slots, a bit mask of the slots that reach one of its pixels
+// (alpha > 0 at a live T_prefix), the warp ORs the masks, and threads
+// 0-127 OR the 8 warps' and write contrib = 1.0 or 0.0 for the chunk's
+// in-segment columns. A block writes only its own segment's walked
+// columns; the wrapper zero-fills the buffer.
 #include "rasterize.cuh"
 #include "reduce.cuh"
 
@@ -128,15 +144,22 @@ __device__ __forceinline__ TileWalk tile_walk(const int* __restrict__ meta,
     return w;
 }
 
-__global__ void __launch_bounds__(RAST_THREADS)
+__global__ void __launch_bounds__(RAST_THREADS, 4)
 fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
                  const float* __restrict__ slot3d, float* __restrict__ out,
                  int* __restrict__ chunks_done, int n_tx, long long m_pad,
                  long long plane, int wp, float near_p, float far_p) {
-    __shared__ float s_p[N_PROJ][CHUNK];
+    // each warp's 32 staged slots: projected rows (opacity * ok) and box
+    __shared__ float s_p[N_RAST_WARPS][N_PROJ][32];
+    __shared__ int s_box[N_RAST_WARPS][4][32];
+    __shared__ int s_stop[N_RAST_WARPS];  // each warp's stop, in chunks
 
     const TileWalk tw = tile_walk(meta, n_tx);
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
     const Cam cam = load_cam(cam_p);
+    const float x0 = (float)(tw.tj * TILE_W);
+    const float y0 = (float)((tw.ti + meta[0]) * TILE_H);
     float py[PX_PER_THREAD], t[PX_PER_THREAD];
     float acc_d[PX_PER_THREAD], acc_a[PX_PER_THREAD];
 #pragma unroll
@@ -147,26 +170,52 @@ fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
         acc_a[p] = 0.0f;
     }
 
-    int c = 0;
-    for (; c < tw.n_chunks; ++c) {
-        int alive = 0;
+    // Each warp walks the segment on its own, 32 slots at a time, and stops
+    // at the first chunk boundary at which none of its pixels is alive.
+    const int n_groups = tw.n_chunks * GROUPS_PER_CHUNK;
+    int q = 0;
+    for (; q < n_groups; ++q) {
+        if (q % GROUPS_PER_CHUNK == 0) {
+            bool alive = false;
 #pragma unroll
-        for (int p = 0; p < PX_PER_THREAD; ++p) alive |= (t[p] > T_EPS);
-        // chunk-granular early stop; also the barrier that protects the
-        // staged chunk of the previous round
-        if (__syncthreads_or(alive) == 0) break;
-        const long long col0 = (long long)tw.base + (long long)c * CHUNK;
-        stage_projected(slot3d, col0, m_pad, cam, near_p, far_p, s_p);
-        __syncthreads();
-        const int j_lo = max(tw.start - (int)col0, 0);
-        const int j_hi = min(tw.end - (int)col0, CHUNK);
-        for (int j = j_lo; j < j_hi; ++j) {
-            const float dx = tw.px - s_p[0][j];
-            const float v = s_p[1][j];
-            const float ca = s_p[2][j], cb = s_p[3][j], cc = s_p[4][j];
-            const float qz = s_p[5][j], opa = s_p[6][j];
+            for (int p = 0; p < PX_PER_THREAD; ++p)
+                alive = alive || (t[p] > T_EPS);
+            if (!__any_sync(0xffffffffu, alive)) break;
+        }
+        const long long cl = (long long)tw.base + (long long)q * 32 + lane;
+        // project slot cl in this lane with the current camera (opacity
+        // folded with ok), with its footprint box
+        float o[N_PROJ];
+        project_slot(slot3d, cl, m_pad, cam, near_p, far_p, o);
+        PixBox bx = {TILE_W, -1, TILE_H, -1};
+        if (cl >= tw.start && cl < tw.end)
+            bx = footprint_box(o[0], o[1], o[2], o[3], o[4], o[6], x0, y0);
+        __syncwarp();  // the previous group's readers are done
+#pragma unroll
+        for (int k = 0; k < N_PROJ; ++k) s_p[warp][k][lane] = o[k];
+        s_box[warp][0][lane] = bx.c_lo;
+        s_box[warp][1][lane] = bx.c_hi;
+        s_box[warp][2][lane] = bx.r_lo;
+        s_box[warp][3][lane] = bx.r_hi;
+        unsigned todo =
+            __ballot_sync(0xffffffffu, (box_warps(bx) >> warp) & 1u);
+        __syncwarp();
+        while (todo != 0u) {
+            const int b = __ffs(todo) - 1;
+            todo &= todo - 1u;
+            if (tw.col < s_box[warp][0][b] || tw.col > s_box[warp][1][b])
+                continue;
+            const int p_lo = s_box[warp][2][b] - tw.row0;
+            const int p_hi = s_box[warp][3][b] - tw.row0;
+            const float dx = tw.px - s_p[warp][0][b];
+            const float v = s_p[warp][1][b];
+            const float ca = s_p[warp][2][b], cb = s_p[warp][3][b];
+            const float cc = s_p[warp][4][b], qz = s_p[warp][5][b];
+            const float opa = s_p[warp][6][b];
 #pragma unroll
             for (int p = 0; p < PX_PER_THREAD; ++p) {
+                // a row outside the box (the same for the warp)
+                if (p < p_lo || p > p_hi) continue;
                 if (!(t[p] > T_EPS)) continue;
                 const float alpha = tile_alpha(dx, py[p] - v, ca, cb, cc, opa);
                 if (alpha == 0.0f) continue;
@@ -178,6 +227,7 @@ fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
             }
         }
     }
+    if (lane == 0) s_stop[warp] = q / GROUPS_PER_CHUNK;
 #pragma unroll
     for (int p = 0; p < PX_PER_THREAD; ++p) {
         const long long pix = (long long)(tw.ti * TILE_H + tw.row0 + p) * wp
@@ -185,7 +235,14 @@ fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
         out[pix] = acc_d[p];
         out[plane + pix] = acc_a[p];
     }
-    if (threadIdx.x == 0) chunks_done[tw.tile] = c;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        // the tile's walk ends with its last warp
+        int c = 0;
+#pragma unroll
+        for (int w = 0; w < N_RAST_WARPS; ++w) c = max(c, s_stop[w]);
+        chunks_done[tw.tile] = c;
+    }
 }
 
 __global__ void __launch_bounds__(RAST_THREADS)

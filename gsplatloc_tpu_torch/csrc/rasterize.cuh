@@ -2,8 +2,9 @@
 // walks (rasterize_fwd.cu, rasterize_bwd.cu, fused_tracking.cu): 16x128
 // pixel tiles, one block per tile, 256 threads of 8 pixels each (thread tid
 // holds column tid % 128 of rows 8*(tid / 128) .. +7, so warp w holds
-// columns 32*(w % 4) .. +31 of rows 8*(w / 4) .. +7), and the (16, M_pad)
-// field-major record buffer staged 128 slots at a time.
+// columns 32*(w % 4) .. +31 of rows 8*(w / 4) .. +7), walks that count
+// 128-slot chunks from floor(start/128)*128 over the (16, M_pad)
+// field-major record buffer, and each warp staging 32 slots at a time.
 //
 // The alpha follows the plain PyTorch version (ops/rasterize_tiles.py
 // _chunk_alpha) term by term, and footprint_box its _footprint_box; the
@@ -20,6 +21,7 @@ constexpr int TILE_W = 128;
 constexpr int RAST_THREADS = 256;
 constexpr int PX_PER_THREAD = TILE_H * TILE_W / RAST_THREADS;  // 8
 constexpr int N_FIELDS = 10;  // record fields read / gradient rows written
+constexpr int GROUPS_PER_CHUNK = CHUNK / 32;  // a warp's 32-slot groups
 
 // Gated alpha of one record at one pixel: sigma >= 0, alpha =
 // min(opa * exp(-sigma), ALPHA_MAX) >= ALPHA_MIN, else 0. The clamp keeps
@@ -36,7 +38,7 @@ __device__ __forceinline__ float tile_alpha(float dx, float dy, float ca,
 // [r_lo, r_hi] (inclusive, clamped to the tile) outside which tile_alpha
 // is 0 at every pixel centre, so a walk may skip those pairs as the exact
 // no-ops they are. mx, my: the centre; ca, cb, cc: the conic; opa: the
-// opacity (K7b: opacity * ok); x0, y0: the tile's first pixel column and
+// opacity (K7a, K7b: opacity * ok); x0, y0: the tile's first pixel column and
 // row. An empty box is {TILE_W, -1, TILE_H, -1}; the whole tile
 // {0, TILE_W-1, 0, TILE_H-1}.
 //
@@ -229,19 +231,6 @@ __device__ __forceinline__ unsigned group_multi(unsigned wset, int& dcnt,
     }
     dcnt += add;
     return __ballot_sync(0xffffffffu, multi);
-}
-
-// Stage fields 0-9 of the 128 slots from column col0 into shared memory
-// (columns at or past m_pad read as 0). Every thread of the block calls it.
-__device__ __forceinline__ void stage_records(const float* __restrict__ rec,
-                                              long long col0, long long m_pad,
-                                              float (*s_rec)[CHUNK]) {
-    for (int i = threadIdx.x; i < N_FIELDS * CHUNK; i += RAST_THREADS) {
-        const int f = i / CHUNK;
-        const int j = i - f * CHUNK;
-        const long long col = col0 + j;
-        s_rec[f][j] = (col < m_pad) ? rec[(long long)f * m_pad + col] : 0.0f;
-    }
 }
 
 }  // namespace gsl

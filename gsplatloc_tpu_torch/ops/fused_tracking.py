@@ -389,9 +389,12 @@ def fused_fwd(slot3d, meta, cam, n_ty, n_tx, near, far):
     (out (2, n_ty*16, n_tx*128) [depth_acc, alpha], chunks_done (n_tiles,)
     int32). CUDA tensor: the hand-written kernel (csrc/fused_tracking.cu
     fused_fwd_kernel, which replaces the Pallas _fused_fwd_kernel; bound by
-    bytes — one block per 16x128 tile, 256 threads of 8 pixels, each
-    128-slot chunk projected once into shared memory). CPU tensor: the
-    plain version `_fused_fwd_plain`."""
+    bytes — one block per 16x128 tile, 256 threads of 8 pixels; each warp
+    walks the segment on its own, projecting 32 slots at a time, only the
+    slots whose footprint box meets its 32x8 pixels, and stops at the first
+    128-slot chunk boundary with none of them alive; chunks_done is the
+    largest of the warps' stops). CPU tensor: the plain version
+    `_fused_fwd_plain`."""
     if not slot3d.is_cuda:
         return _fused_fwd_plain(slot3d, meta, cam, n_ty, n_tx, near, far)
     n_tiles = n_ty * n_tx

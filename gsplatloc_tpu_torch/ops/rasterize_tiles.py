@@ -13,7 +13,7 @@ gathered into a (16, M_pad) field-major buffer:
 
 Kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu), each with its
 plain PyTorch version here (and `_footprint_box`, the plain form of the
-per-slot pixel box to which the backward limits its walk):
+per-slot pixel box to which both kernels limit their walks):
   rasterize_fwd  replaces the Pallas _fwd_kernel  plain: _composite_fwd_plain
   rasterize_bwd  replaces the Pallas _bwd_kernel  plain: _composite_bwd_plain
 
@@ -214,9 +214,12 @@ def rasterize_fwd(records, meta, n_ty, n_tx):
     tile_starts]. Returns (out (5, n_ty*16, n_tx*128) [r, g, b, depth_acc,
     alpha], chunks_done (n_tiles,) int32). CUDA tensor: the hand-written
     kernel (csrc/rasterize_fwd.cu, which replaces the Pallas _fwd_kernel;
-    bound by operations — one block per 16x128 tile, 256 threads of 8
-    pixels, 128-slot chunks staged in shared memory). CPU tensor: the plain
-    version `_composite_fwd_plain`."""
+    bound by bytes — one block per 16x128 tile, 256 threads of 8 pixels;
+    each warp walks the segment on its own, 32 slots at a time, only the
+    slots whose footprint box meets its 32x8 pixels, and stops at the first
+    128-slot chunk boundary with none of them alive; chunks_done is the
+    largest of the warps' stops). CPU tensor: the plain version
+    `_composite_fwd_plain`."""
     if not records.is_cuda:
         return _composite_fwd_plain(records, meta, n_ty, n_tx)
     n_tiles = n_ty * n_tx
