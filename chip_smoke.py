@@ -14,12 +14,15 @@ Phases (each raises on failure; nothing carries on on the CPU):
                timings and the least time the card could take for the same
                work; the index select against its plain version and its
                gathered records against the records select's, both at
-               K=16 and at K=12, bit for bit; for the four tile walks
-               that skip the pixels outside each slot's footprint box (K6a,
-               K6b, K7a, K7b), every gate hit of the walked chunks inside
-               its box (`_footprint_box`), the pairs the boxes hold, how
-               the walk's slots fall on the 8 warps of a tile, and the
-               kernels' registers and spills from the build's -Xptxas -v.
+               K=16 and at K=12, bit for bit; for the five walks that
+               skip the pixels outside each slot's footprint box (K6a,
+               K6b, K7a, K7b with `_footprint_box`; the sub-tile backward
+               K5a with `_subtile_box`), every gate hit of the walked
+               chunks inside its box, the pairs the boxes hold, how the
+               walk's slots fall on the 8 warps of a block, and the
+               kernels' registers and spills from the build's -Xptxas -v
+               (K2's too). K5a's bound counts the pairs inside its boxes,
+               K2's one projection per record it reads.
   4. main    — one displaced synthetic RGB-D frame pair prepared
                (_assemble_pair) and pose-tracked (optimize_pose, default
                K-cover configuration, max_steps=300), run twice; launch
@@ -118,11 +121,13 @@ OPS_ALPHA_DIRECT = 32  # K-cover step: sigma at the pixel + compositing
 OPS_PAIR_SELECT = 24  # select: polynomial sigma + gates + T update
 OPS_PAIR_WALK = 29  # sub-tile walk: polynomial sigma + compositing
 OPS_CHAIN = 236  # pose_chain, per contributing record
-# sub-tile backward, per live (slot, pixel) pair of a walked chunk:
-# sub_alpha 23 (sigma 10, negate 1, expf 8, opacity 1, clamp 1, gates 2) +
-# the adjoint 22 (1-alpha, T*, live, w, phi 2, run 2, suffix, fmax, divide,
-# suffix*inv, T*phi, subtract, gates 4, d_sigma 2, w*g_d) + the moment
-# sums 6 (row sum of d_sigma, x*d_sigma 2, x^2*d_sigma 2, w*g_d)
+# sub-tile backward, per (slot, pixel) pair inside a walked slot's
+# footprint box (the bound counts these, not every pixel of the sub-tile
+# the unculled walk met): sub_alpha 23 (sigma 10, negate 1, expf 8,
+# opacity 1, clamp 1, gates 2) + the adjoint 22 (1-alpha, T*, live, w,
+# phi 2, run 2, suffix, fmax, divide, suffix*inv, T*phi, subtract, gates
+# 4, d_sigma 2, w*g_d) + the moment sums 6 (row sum of d_sigma, x*d_sigma
+# 2, x^2*d_sigma 2, w*g_d)
 OPS_PAIR_BWD = 51
 OPS_DECODE = 6  # sub-tile chain: origin decode from moment row 7, per slot
 # general rasterizer (csrc/rasterize.cuh, rasterize_fwd.cu, rasterize_bwd.cu),
@@ -378,31 +383,41 @@ def check_kernels(pair, dev):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     g_d = torch.randn(m_out, generator=gen).to(dev)
     g_a = torch.randn(m_out, generator=gen).to(dev)
-    b_k = kc.kcover_step_bwd(kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a)
-    b_k2 = kc.kcover_step_bwd(kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a)
-    b_p = kc._kcover_step_bwd_plain(kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a)
+    # the backward reads the forward's rows (one sweep over the records)
+    b_k = kc.kcover_step_bwd(kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a,
+                             f_k)
+    b_k2 = kc.kcover_step_bwd(kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a,
+                              f_k)
+    b_p = kc._kcover_step_bwd_plain(kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d,
+                                    g_a, f_k)
     torch.cuda.synchronize()
     err = float((b_k - b_p).abs().max())
     rel = err / float(b_p.abs().max())  # relative to the largest scalar
     rel_n = float((b_k - b_p).norm() / b_p.norm())
     repeat = torch.equal(b_k, b_k2)
+    regs, spill_st, spill_ld = ptxas_usage("kcover_step_bwd_kernel")
     log(f"[kernels] kcover_step_bwd: max_abs_err={err:.3e} "
         f"max_rel_err={rel:.3e} rel_norm_err={rel_n:.3e} "
-        f"bitwise_repeatable={repeat}")
+        f"bitwise_repeatable={repeat}; registers {regs}, spill "
+        f"stores/loads {spill_st}/{spill_ld} bytes")
     if not rel <= TOL_BWD_REL or not repeat:
         raise RuntimeError(f"kcover_step_bwd disagrees: rel {rel}, "
                            f"repeatable {repeat}")
     ms = time_ms(lambda: kc.kcover_step_bwd(
-        kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a), 50)
+        kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a, f_k), 50)
     pms = time_ms(lambda: kc._kcover_step_bwd_plain(
-        kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a), 3, warm=1)
+        kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a, f_k), 3, warm=1)
+    # bytes: the needed records once, the two cotangent rows and the
+    # forward's two rows, the 12 scalars; operations: one projection and
+    # one alpha per needed record, the chain per contributing record
     entries.append(kernel_entry(
         "kcover_step_bwd", "gsplatloc_tpu_torch/csrc/kcover_step.cu",
         "gsplatloc_tpu/ops/kcover.py:964", err, ms, pms,
-        bound(needed * 5 * 4 + 2 * 4 * m_out + 48,
-              needed * 2 * (OPS_PROJECT + OPS_ALPHA_DIRECT)
+        bound(needed * 5 * 4 + 4 * 4 * m_out + 48,
+              needed * (OPS_PROJECT + OPS_ALPHA_DIRECT)
               + chained * OPS_CHAIN),
-        max_rel_err=rel))
+        max_rel_err=rel, regs=regs, spill_stores=spill_st,
+        spill_loads=spill_ld))
     del kb_k
     entries += check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx)
     return entries
@@ -464,7 +479,8 @@ def check_index_select(slot3d, meta, cam, kb_k, n_ty, n_tx):
 def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
     """K5a / K5b at the kcover=0 path's shapes: the tracking scene's
     sub-tile slot buffer built at the init pose, rendered at a pose about a
-    pixel away, with cotangents made from a numpy seed."""
+    pixel away (K5a walks the chunks of that forward), with cotangents made
+    from a numpy seed."""
     entries = []
     slot, meta, _ = fs.build_subtile_slot_buffer(scene, vm, K, W, H, NEAR, FAR)
     m_pad = slot.shape[1]
@@ -475,8 +491,8 @@ def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
     g = torch.as_tensor(rng.standard_normal((2, m_out)).astype(np.float32),
                         device=dev)
     sin = torch.cat([out, g]).contiguous()
-    mom_k = fs.subtile_bwd(p8, sin, meta, n_ty, n_tx)
-    mom_k2 = fs.subtile_bwd(p8, sin, meta, n_ty, n_tx)
+    mom_k = fs.subtile_bwd(p8, sin, meta, n_ty, n_tx, cd)
+    mom_k2 = fs.subtile_bwd(p8, sin, meta, n_ty, n_tx, cd)
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -501,15 +517,24 @@ def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
         raise RuntimeError("subtile_bwd disagrees with its plain version: "
                            f"rows {rel_rows}, row7 {row7}, zero-fill "
                            f"{zeros_equal}, repeatable {repeat}")
-    ms = time_ms(lambda: fs.subtile_bwd(p8, sin, meta, n_ty, n_tx), 20)
+    cull = subtile_box_check(p8, meta, cd, n_tx)
+    regs, spill_st, spill_ld = ptxas_usage("subtile_bwd_kernel")
+    log_cull("subtile_bwd", cull, None, walked, regs, spill_st, spill_ld)
+    ms = time_ms(lambda: fs.subtile_bwd(p8, sin, meta, n_ty, n_tx, cd), 20)
+    # operations: the staging of every walked slot, and the full pair work
+    # only for the pairs inside the walked slots' footprint boxes (every
+    # gate hit lies inside; the unculled count was live slots x 256)
     entries.append(kernel_entry(
         "subtile_bwd", "gsplatloc_tpu_torch/csrc/subtile_bwd.cu",
         "gsplatloc_tpu/ops/fused_subtile.py:782", err, ms, pms,
         bound(walked * 8 * 4 + 4 * 4 * m_out + 8 * 4 * m_pad
-              + 4 * meta.numel(),
-              stats["pairs"] * OPS_PAIR_BWD + walked * OPS_COEFF),
+              + 4 * (meta.numel() + cd.numel()),
+              cull["box_pairs"] * OPS_PAIR_BWD + walked * OPS_COEFF),
         max_rel_err=max(rel_rows), walked_slots=walked,
-        pairs=stats["pairs"]))
+        live_slot_pairs=stats["pairs"], box_pairs=cull["box_pairs"],
+        gate_hits=cull["hits"], gate_hits_outside_box=cull["outside"],
+        multi_warp_slots=cull["multi_warp_slots"], regs=regs,
+        spill_stores=spill_st, spill_loads=spill_ld))
     del mom_k2, mom_p
 
     d_k = fs.subtile_chain(slot, mom_k, cam_s, meta, n_tx)
@@ -658,12 +683,66 @@ def box_check(records, meta, cd, n_tx):
     return out
 
 
+def subtile_box_check(p8, meta, cd, n_tx, batch=512):
+    """The footprint cull of the sub-tile backward walk (K5a) against the
+    gates, over every chunk each sub-tile's walk reached: box_check's
+    counts with `_subtile_box` for the boxes, `_sub_alpha` for the gates
+    and the 8 warps of a sub-tile block (warp w: pixel rows 2w and 2w+1)."""
+    n = cd.shape[0]
+    dev = p8.device
+    starts, _ = fs._segment_bounds(meta, n)
+    x0, y0 = fs._segment_origins(meta, n, n_tx)
+    mono = fs._sub_mono(dev)
+    flat = torch.arange(fs.P_SUB, device=dev)
+    row, col = flat // fs.SUB_W, flat % fs.SUB_W
+    w_ids = torch.arange(8, device=dev)
+    out = dict(hits=0, outside=0, box_pairs=0, met_warps=0,
+               multi_warp_slots=0)
+    chunk_sync = torch.zeros(n, device=dev)
+    per_warp = torch.zeros((n, 8), device=dev)
+    cdl = cd.long()
+    for c in range(int(cdl.max()) if n else 0):
+        act_all = torch.nonzero(c < cdl)[:, 0]
+        for act in act_all.split(batch):
+            m = act.numel()
+            idx = (starts[act][:, None] + c * fs.CHUNK
+                   + torch.arange(fs.CHUNK, device=dev)[None, :]).reshape(-1)
+            xa = x0[act].repeat_interleave(fs.CHUNK)
+            ya = y0[act].repeat_interleave(fs.CHUNK)
+            rec = p8[:, idx]
+            coef = fs._coeff_mat(rec, xa[None, :], ya[None, :])
+            c_lo, c_hi, r_lo, r_hi = fs._subtile_box(coef, rec[0] - xa,
+                                                     rec[1] - ya)
+            hit = fs._sub_alpha(coef, mono) > 0.0
+            inside = ((col >= c_lo[:, None]) & (col <= c_hi[:, None])
+                      & (row >= r_lo[:, None]) & (row <= r_hi[:, None]))
+            out["hits"] += int(hit.sum())
+            out["outside"] += int((hit & ~inside).sum())
+            del hit, inside
+            area = ((c_hi - c_lo + 1).clamp_min(0)
+                    * (r_hi - r_lo + 1).clamp_min(0))
+            out["box_pairs"] += int(area.sum())
+            met = ((area > 0)[:, None] & (r_lo[:, None] <= 2 * w_ids + 1)
+                   & (r_hi[:, None] >= 2 * w_ids)).reshape(m, fs.CHUNK, 8)
+            n_met = met.sum(-1)
+            out["met_warps"] += int(n_met.sum())
+            out["multi_warp_slots"] += int((n_met > 1).sum())
+            per_chunk = met.sum(1).float()  # (m, 8)
+            chunk_sync[act] += per_chunk.max(dim=1).values
+            per_warp[act] += per_chunk
+    out["chunk_sync"] = float(chunk_sync.mean())
+    out["busiest_warp"] = float(per_warp.max(dim=1).values.mean())
+    out["mean_warp"] = float(per_warp.mean())
+    return out
+
+
 def log_cull(name, cull, needed, walked, regs, spill_st, spill_ld):
     """Print box_check's counts for one kernel; raise on a gate hit outside
     its box."""
+    fp = "" if needed is None else f" (footprint_pairs {needed})"
     log(f"[kernels] {name} footprint cull: gate hits {cull['hits']} in the "
         f"walked chunks, {cull['outside']} outside their boxes; box_pairs "
-        f"{cull['box_pairs']} (footprint_pairs {needed}); warps met per "
+        f"{cull['box_pairs']}{fp}; warps met per "
         f"walked slot {cull['met_warps'] / max(walked, 1):.4f}, slots met "
         f"by several warps {cull['multi_warp_slots']}; per tile, met (slot, "
         f"warp) pairs of the busiest warp summed over chunks "

@@ -5,19 +5,32 @@
 // kcover_step_bwd replaces _kcover_step_bwd_kernel (both in the JAX
 // package's ops/kcover.py).
 //
-// Bound on this card: bytes. Each pass streams the (5, K, M_out) cover
+// Bound on this card: bytes. Each kernel streams the (5, K, M_out) cover
 // buffer once; the arithmetic per record (projection, one expf, the pose
 // chain in the backward) is far below the card's f32 rate for those bytes.
 // Design: one thread per pixel, the K loop in registers; thread p reads
 // kbuf[r, k, p], so a warp reads 128 contiguous bytes per row. A pixel
 // stops reading its list once its transmittance is dead (every later
 // record then contributes exactly 0), which removes most of the stream on
-// opaque scenes. The backward keeps no K-long register array: sweep 1
-// totals w*phi, sweep 2 recomputes and uses total minus running prefix.
-// The 12 pose partials are reduced warp -> block -> (n_blocks, 12) scratch,
-// and a second kernel adds the block rows in a fixed order in double: no
-// float atomics, so a run is bitwise repeatable (reduce.cuh; the sub-tile
-// pose chain shares it).
+// opaque scenes.
+//
+// The backward makes one sweep. The adjoint needs, at record k, the suffix
+// sum of w*phi over the records after k (phi = g_d*qz + g_a). Its total is
+// g_d*depth_acc + g_a*alpha, the two rows the forward wrote, so the suffix
+// is that total minus the running sum: each record is read, projected and
+// evaluated once, with no sweep that only totals. (The reference's
+// sub-tile backward takes its total the same way.) The forward's totals
+// are summed in another order than the running sum, so at the last live
+// record the suffix is a rounding residue of the total, not exactly 0: a
+// relative error of the f32 order, like every other suffix. The record
+// whose INCLUSIVE transmittance crosses T_EPS is not live; its exact
+// suffix is 0 and so is its d_alpha. It is gated off by `live` (as the
+// sub-tile backward gates it), so it contributes exactly what the
+// two-sweep form gave it, 0, rather than the residue times 1/(1-alpha).
+// The 12 pose partials are reduced warp -> block -> (n_blocks, 12)
+// scratch, and a second kernel adds the block rows in a fixed order in
+// double: no float atomics, so a run is bitwise repeatable (reduce.cuh;
+// the sub-tile pose chain shares it).
 #include "project.cuh"
 #include "reduce.cuh"
 
@@ -89,6 +102,7 @@ kcover_step_fwd_kernel(const float* __restrict__ cam_p,
 __global__ void __launch_bounds__(STEP_THREADS)
 kcover_step_bwd_kernel(const float* __restrict__ cam_p,
                        const float* __restrict__ kbuf,
+                       const float* __restrict__ fwd,
                        const float* __restrict__ gd,
                        const float* __restrict__ ga,
                        float* __restrict__ scratch, int k_cover,
@@ -104,28 +118,19 @@ kcover_step_bwd_kernel(const float* __restrict__ cam_p,
         pixel_center(f, n_tx, px, py);
         const float g_d = gd[f];
         const float g_a = ga[f];
-        // sweep 1: total of w * phi over the live records
-        float t = 1.0f, total = 0.0f;
-        for (int k = 0; k < k_cover; ++k) {
-            const StepEval e = step_eval(kbuf, k, k_cover, m_out, f, cam, px,
-                                         py, near_p, far_p, t);
-            const float phi = g_d * e.pr.qz + g_a;
-            total = total + e.w * phi;
-            t = t * e.om;
-            if (!(t > T_EPS)) break;
-        }
-        // sweep 2: compositing adjoint with suffix = total - running prefix
-        t = 1.0f;
-        float run = 0.0f;
+        // total of w * phi over the live records, from the forward's rows
+        const float g_tot = g_d * fwd[f] + g_a * fwd[m_out + f];
+        float t = 1.0f, run = 0.0f;
         for (int k = 0; k < k_cover; ++k) {
             const StepEval e = step_eval(kbuf, k, k_cover, m_out, f, cam, px,
                                          py, near_p, far_p, t);
             const float phi = g_d * e.pr.qz + g_a;
             run = run + e.w * phi;
-            const float suffix = total - run;
+            const float suffix = g_tot - run;
             const float inv_om = 1.0f / fmaxf(e.om, ONE_MINUS_ALPHA_MAX);
             float d_alpha = (e.live ? e.t_excl * phi : 0.0f) - suffix * inv_om;
-            d_alpha = (e.ok && (e.alpha_raw < ALPHA_MAX)) ? d_alpha : 0.0f;
+            d_alpha = (e.ok && e.live && (e.alpha_raw < ALPHA_MAX)) ? d_alpha
+                                                                    : 0.0f;
             const float d_sigma = d_alpha * (-e.alpha);
             const float qz_bar = e.w * g_d;
             if (d_sigma != 0.0f || qz_bar != 0.0f) {
@@ -180,7 +185,8 @@ extern "C" int gsl_kcover_step_fwd(const void* cam, const void* kbuf,
 }
 
 extern "C" int gsl_kcover_step_bwd(const void* cam, const void* kbuf,
-                                   const void* gd, const void* ga,
+                                   const void* fwd, const void* gd,
+                                   const void* ga,
                                    void* scratch, void* out, int k_cover,
                                    long long m_out, int n_tx, float near_p,
                                    float far_p, int n_blocks, void* stream) {
@@ -189,8 +195,8 @@ extern "C" int gsl_kcover_step_bwd(const void* cam, const void* kbuf,
     if (blocks != n_blocks) return (int)cudaErrorInvalidValue;
     gsl::kcover_step_bwd_kernel<<<(unsigned)blocks, threads, 0,
                                   (cudaStream_t)stream>>>(
-        (const float*)cam, (const float*)kbuf, (const float*)gd,
-        (const float*)ga, (float*)scratch, k_cover, m_out, n_tx, near_p,
+        (const float*)cam, (const float*)kbuf, (const float*)fwd,
+        (const float*)gd, (const float*)ga, (float*)scratch, k_cover, m_out, n_tx, near_p,
         far_p);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;

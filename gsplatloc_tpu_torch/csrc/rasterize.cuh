@@ -120,39 +120,41 @@ __device__ __forceinline__ unsigned box_warps(const PixBox& b) {
 // warp order and frees them. A warp waits only when its ring entry or the
 // slot's counter is still held by an older slot; the warp furthest behind
 // never does (every slot older than its position has all its deposits), so
-// the walks cannot deadlock.
+// the walks cannot deadlock. NS: sums per slot; CD, CC: the capacities
+// (the sub-tile walk of subtile_bwd.cu, 8 warps as well, takes smaller
+// ones).
 constexpr int N_RAST_WARPS = RAST_THREADS / 32;
 constexpr int CAP_DEP = 192;
 constexpr int CAP_CNT = 512;
 
-template <int NS>
+template <int NS, int CD = CAP_DEP, int CC = CAP_CNT>
 struct Pending {
-    float (*dep)[CAP_DEP][NS];  // [N_RAST_WARPS][CAP_DEP][NS]
-    int (*tag)[CAP_DEP];        // [N_RAST_WARPS][CAP_DEP]
-    int* cnt;                   // [CAP_CNT]
-    int* own;                   // [CAP_CNT]
+    float (*dep)[CD][NS];  // [N_RAST_WARPS][CD][NS]
+    int (*tag)[CD];        // [N_RAST_WARPS][CD]
+    int* cnt;              // [CC]
+    int* own;              // [CC]
 };
 
-template <int NS>
+template <int NS, int CD = CAP_DEP, int CC = CAP_CNT>
 constexpr size_t pending_bytes() {
-    return sizeof(float) * N_RAST_WARPS * CAP_DEP * NS
-           + sizeof(int) * (N_RAST_WARPS * CAP_DEP + 2 * CAP_CNT);
+    return sizeof(float) * N_RAST_WARPS * CD * NS
+           + sizeof(int) * (N_RAST_WARPS * CD + 2 * CC);
 }
 
 // Carve the tables out of dynamic shared memory and reset them (every
 // thread of the block calls it; the caller then synchronises the block).
-template <int NS>
-__device__ __forceinline__ Pending<NS> pending_init(void* smem) {
-    Pending<NS> pd;
-    pd.dep = reinterpret_cast<float (*)[CAP_DEP][NS]>(smem);
+template <int NS, int CD = CAP_DEP, int CC = CAP_CNT>
+__device__ __forceinline__ Pending<NS, CD, CC> pending_init(void* smem) {
+    Pending<NS, CD, CC> pd;
+    pd.dep = reinterpret_cast<float (*)[CD][NS]>(smem);
     int* ints = reinterpret_cast<int*>(
-        static_cast<float*>(smem) + N_RAST_WARPS * CAP_DEP * NS);
-    pd.tag = reinterpret_cast<int (*)[CAP_DEP]>(ints);
-    pd.cnt = ints + N_RAST_WARPS * CAP_DEP;
-    pd.own = pd.cnt + CAP_CNT;
-    for (int i = threadIdx.x; i < N_RAST_WARPS * CAP_DEP; i += blockDim.x)
+        static_cast<float*>(smem) + N_RAST_WARPS * CD * NS);
+    pd.tag = reinterpret_cast<int (*)[CD]>(ints);
+    pd.cnt = ints + N_RAST_WARPS * CD;
+    pd.own = pd.cnt + CC;
+    for (int i = threadIdx.x; i < N_RAST_WARPS * CD; i += blockDim.x)
         ints[i] = -1;
-    for (int i = threadIdx.x; i < CAP_CNT; i += blockDim.x) {
+    for (int i = threadIdx.x; i < CC; i += blockDim.x) {
         pd.cnt[i] = 0;
         pd.own[i] = i;
     }
@@ -163,14 +165,15 @@ __device__ __forceinline__ Pending<NS> pending_init(void* smem) {
 // index idx, met by the warps of ws, whose deposit in warp u's ring is
 // number dix[u] (dix_w for w itself). Returns true, with the sum over ws's
 // deposits in warp order from +0.0f in s, if w is the last to arrive.
-template <int NS>
-__device__ __forceinline__ bool pending_deposit(const Pending<NS>& pd, int w,
+template <int NS, int CD, int CC>
+__device__ __forceinline__ bool pending_deposit(const Pending<NS, CD, CC>& pd,
+                                                int w,
                                                 int idx, unsigned ws,
                                                 int dix_w,
                                                 const int dix[N_RAST_WARPS],
                                                 const float acc[NS],
                                                 float s[NS]) {
-    const int r = dix_w % CAP_DEP;
+    const int r = dix_w % CD;
     volatile int* tag = pd.tag[w];
     while (tag[r] != -1) __nanosleep(64);
     __threadfence_block();
@@ -178,7 +181,7 @@ __device__ __forceinline__ bool pending_deposit(const Pending<NS>& pd, int w,
     for (int k = 0; k < NS; ++k) pd.dep[w][r][k] = acc[k];
     tag[r] = idx;
     __threadfence_block();
-    const int e = idx % CAP_CNT;
+    const int e = idx % CC;
     volatile int* own = pd.own;
     while (own[e] != idx) __nanosleep(64);
     __threadfence_block();
@@ -189,7 +192,7 @@ __device__ __forceinline__ bool pending_deposit(const Pending<NS>& pd, int w,
 #pragma unroll
     for (int u = 0; u < N_RAST_WARPS; ++u) {
         if ((ws >> u) & 1u) {
-            const volatile float* d = pd.dep[u][dix[u] % CAP_DEP];
+            const volatile float* d = pd.dep[u][dix[u] % CD];
 #pragma unroll
             for (int k = 0; k < NS; ++k) s[k] = s[k] + d[k];
         }
@@ -198,11 +201,11 @@ __device__ __forceinline__ bool pending_deposit(const Pending<NS>& pd, int w,
 #pragma unroll
     for (int u = 0; u < N_RAST_WARPS; ++u) {
         if ((ws >> u) & 1u)
-            ((volatile int*)pd.tag[u])[dix[u] % CAP_DEP] = -1;
+            ((volatile int*)pd.tag[u])[dix[u] % CD] = -1;
     }
     pd.cnt[e] = 0;
     __threadfence_block();
-    own[e] = idx + CAP_CNT;
+    own[e] = idx + CC;
     return true;
 }
 

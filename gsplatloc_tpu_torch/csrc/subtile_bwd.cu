@@ -7,24 +7,52 @@
 // (launched by _chain_pallas), both in the JAX package's
 // ops/fused_subtile.py.
 //
-// subtile_bwd — bound: operations (every walked slot meets the 256 pixels
-// of its sub-tile: the forward's polynomial sigma, one expf and the
-// compositing, then the adjoint and the moment sums; the bytes are one read
-// of the walked projected slots and four pixel rows, one write of the
-// (8, M_pad) moments). Design: the forward walk's block shape — one block
-// per 16x16 sub-tile, one thread per pixel, 128-slot chunks staged in
-// shared memory as tile-local polynomial coefficients. Each pixel thread
-// carries its transmittance T, and the running sum of w*phi; the suffix
-// sum the adjoint needs is the forward total minus that running sum, so
-// there is no reverse walk. Per 16 slots each thread stages its d_sigma and
-// w*g_d in shared memory; then lane (slot, row) of each warp sums one pixel
-// row of one slot in a fixed order (d_sigma, x*d_sigma, x^2*d_sigma and
-// w*g_d: the y moments follow from the row's y), the warp joins its two
-// rows, and the 8 warp partials are added in a fixed order. No float
-// atomics, so a result repeats bit for bit. Row 7 carries the sub-tile
-// origin packed as sub_row*ENC_Y + sub_col; the chunks the early stop skips
-// are written as zero, all 8 rows, as is every slot outside
-// [meta[1], meta[n_seg+1]).
+// subtile_bwd — bound: bytes (as chip_smoke.py counts it: one read of the
+// walked projected slots and four pixel rows, one write of the (8, M_pad)
+// moments; the operations — the staging of every walked slot, and per
+// (slot, pixel) pair inside the slot's footprint box the forward's
+// polynomial sigma, one expf, the compositing, the adjoint and the moment
+// sums — take less time at the card's f32 rate). Design: one block per 16x16 sub-tile, 256 threads of one
+// pixel each; warp w holds pixel rows 2w and 2w+1 (lane l: row 2w + l/16,
+// column l % 16). Each pixel carries its transmittance T and the running
+// sum of w*phi; the suffix sum the adjoint needs is the forward total
+// g_d*depth_acc + g_a*alpha minus that running sum, so there is no reverse
+// walk. The walk covers the chunks the forward walked (its chunks_done).
+//
+// Footprint cull: each slot's footprint box (subtile_box below,
+// conservative against this kernel's own f32 polynomial and expf) bounds
+// the pixels whose alpha can pass the gates. A warp walks only the slots
+// whose box meets its two rows, and a lane outside the box skips the
+// alpha. A skipped pair has alpha 0, and a pair of a dead pixel has w = 0
+// and d_alpha = 0: either adds only a signed zero to every sum below, and
+// leaves T and the running sum as they were.
+//
+// Decoupled warps (as rasterize_bwd.cu): each warp walks the segment on
+// its own, 32 slots at a time. Its lanes stage the 32 slots' polynomial
+// coefficients and boxes in the warp's part of shared memory; a ballot
+// lists the slots it meets. A warp stops evaluating at the first chunk
+// boundary at which none of its 32 pixels is alive and walks on only to
+// keep the bookkeeping below; T only falls, so the largest of the warps'
+// stops is the forward's chunks_done, the block-wide vote.
+//
+// Moments, in the order of the unculled kernel: per slot and pixel row,
+// d_sigma, x*d_sigma, x^2*d_sigma and w*g_d summed in column order from
+// +0.0f (here only over the box's columns, read by shuffles), the six
+// moments of the row formed (the y moments from the row's y), the warp's
+// two rows added (row 2w first), and the warp partials added in warp order
+// from +0.0f. Every chain starts at +0.0f, and x + y is -0.0f only for two
+// -0.0f, so no partial is -0.0f; a column, row or warp that meets no pixel
+// of the box held only signed zeros there, and leaving them out changes no
+// bit: the moments equal the unculled walk's bit for bit. A slot that one
+// warp meets gets its moments from that warp; a slot that several warps
+// meet is finished by the last of them to arrive, from the others'
+// deposits (rasterize.cuh Pending; smaller rings made the warps wait,
+// larger ones cost blocks per SM: SUB_CAP_* measured best); slots no warp
+// meets are written by warp 0. No float atomics, so a result repeats bit
+// for bit. Row 7 carries the sub-tile origin packed as sub_row*ENC_Y +
+// sub_col for every slot of a walked chunk; the chunks the walk skips are
+// written as zero, all 8 rows, as is every slot outside [meta[1],
+// meta[n_seg+1]).
 //
 // subtile_chain — bound: bytes (one read of the 8 moment rows over the
 // walked range and of the 5 record rows of the slots with a nonzero
@@ -32,25 +60,130 @@
 // rate for those bytes). One thread per slot decodes its origin from row 7,
 // recomputes project_parts and runs pose_chain; the 12 partials go through
 // the fixed-order reduction shared with kcover_step_bwd (reduce.cuh).
-#include "project.cuh"
+#include "rasterize.cuh"
 #include "reduce.cuh"
 
 namespace gsl {
 
+constexpr int N_SUB_WARPS = P_SUB / 32;  // 8, two pixel rows each
+static_assert(N_SUB_WARPS == N_RAST_WARPS, "Pending serves 8 warps");
+
+// Footprint box of one slot in a 16x16 sub-tile walk, and the warps of the
+// block (warp w: pixel rows 2w and 2w+1) that it meets. The plain version
+// is ops/fused_subtile.py _subtile_box, in the same f32 operation order.
+//
+// subtile_box(coef, ul, vl): coef = coeff_mat's [c0, cx, cy, cxx, cxy, cyy,
+// qz, opa*ok] and (ul, vl) = (u - x0, v - y0), the f32 values coeff_mat
+// computed. Returns the inclusive rectangle [c_lo, c_hi] x [r_lo, r_hi]
+// (clamped to the sub-tile) outside which sub_alpha returns exactly 0 at
+// every pixel centre (xl, yl) = (c + 0.5, r + 0.5) under the kernel's own
+// f32 arithmetic; an empty box is {SUB_W, -1, SUB_H, -1}, the whole
+// sub-tile {0, SUB_W-1, 0, SUB_H-1}.
+//
+// Margins (u = 2^-24). Let Q(p) = cxx dx^2 + cxy dx dy + cyy dy^2, dx =
+// xl - ul, dy = yl - vl, in exact arithmetic on the f32 values: cxx =
+// ca/2, cxy = cb, cyy = cc/2 exactly, so Q >= 0 with its minimum 0 at
+// (ul, vl) whenever the form is positive definite, which is exactly when
+// the conic is (4 cxx cyy - cxy^2 = ca cc - cb^2). The kernel's sigma_f is
+// the expanded polynomial in f32, and it differs from Q(p) by
+//  - the evaluation error: six terms, each through at most one product and
+//    five sums, so <= 6.01u (|c0| + 16(|cx| + |cy|) + 256(cxx + |cxy| +
+//    cyy)) with xl, yl <= 15.5 and xl^2, xl*yl, yl^2 <= 240.25 (exact);
+//  - the rounding of the coefficients c0, cx, cy from (ul, vl, ca, cb,
+//    cc): <= 4.01u (cxx ul^2 + cyy vl^2 + |cxy ul vl|) for c0 and 2.01u
+//    (2 cxx |ul| + |cxy| |vl|) for cx (cy alike), times xl, yl < 16.
+// That error is bounded by the magnitudes of the terms, not by sigma: a
+// centre far from the sub-tile's origin cancels large terms, and sigma_f
+// can come out below 0 (down to -err; the gate sigma >= -SIG_EPS exists
+// for that). err = 64u * (the sum of those magnitudes) + 2^-20 covers both
+// with room for its own f32 evaluation (the absolute 2^-20 covers a
+// subnormal ca/2). A pair passes only if opa*expf(-sigma_f) >= ALPHA_MIN
+// in f32, i.e. sigma_f <= ln(255 opa) + 4u-ish; with lf = logf(255 opa)
+// (1 ulp), S = lf + |lf| 2^-20 + 2^-20 + err bounds Q(p) at every passing
+// pixel. S < 0 (an opacity so low that even sigma_f = -err fails the gate)
+// is empty: below ALPHA_MIN the box is empty, and the -SIG_EPS slack lets
+// an opacity a little below ALPHA_MIN through only where err allows. On
+// the ellipse Q <= S, |dx| <= sqrt(4 S cyy / det) and |dy| <= sqrt(4 S cxx
+// / det) with det = 4 cxx cyy - cxy^2; det_lo = det - 2^-20 * 4 cxx cyy
+// bounds det from below (its three roundings are within 3u of 4 cxx cyy),
+// and 2^-16 of the half extents and of |ul| + 1 covers the rounding of the
+// box arithmetic (as rasterize.cuh footprint_box). Cases: a non-finite
+// coefficient or centre, and a form that is not positive definite (or
+// det_lo <= 0) keep the whole sub-tile; so does err > 1/4, an error margin
+// not small against ln(255 opa) <= ln 255 (a centre or a curvature so large
+// that the f32 polynomial has lost the gate's resolution), where the gate
+// decides as before; opa*ok == 0 is empty whatever the other fields hold
+// (the walks skip such a slot), and so is opa*ok < 0. A NaN opacity keeps
+// the whole sub-tile: fminf drops the NaN and its alpha passes the gates.
+constexpr float SUB_BOX_ERR_REL = 1.0f / 262144.0f;  // 2^-18 = 64u
+constexpr float SUB_BOX_ERR_ABS = 1.0f / 1048576.0f;  // 2^-20
+constexpr float SUB_BOX_ERR_MAX = 0.25f;
+
+__device__ __forceinline__ PixBox subtile_box(const float coef[8], float ul,
+                                              float vl) {
+    const PixBox whole = {0, SUB_W - 1, 0, SUB_H - 1};
+    const PixBox empty = {SUB_W, -1, SUB_H, -1};
+    const float c0 = coef[0], cx = coef[1], cy = coef[2];
+    const float cxx = coef[3], cxy = coef[4], cyy = coef[5], opa = coef[7];
+    // the walks skip such a slot (whatever its other fields hold)
+    if (opa == 0.0f) return empty;
+    if (!(isfinite(c0) && isfinite(cx) && isfinite(cy) && isfinite(cxx)
+          && isfinite(cxy) && isfinite(cyy) && isfinite(opa) && isfinite(ul)
+          && isfinite(vl)))
+        return whole;
+    if (opa < 0.0f) return empty;
+    const float k1 = 4.0f * (cxx * cyy);
+    const float det_lo = (k1 - cxy * cxy) - k1 * BOX_DET_REL;
+    if (!(cxx > 0.0f && cyy > 0.0f && det_lo > 0.0f)) return whole;
+    const float au = fabsf(ul), av = fabsf(vl), axy = fabsf(cxy);
+    const float mag =
+        fabsf(c0) + 16.0f * (fabsf(cx) + fabsf(cy))
+        + 256.0f * (cxx + axy + cyy)
+        + (cxx * (au * au) + cyy * (av * av) + axy * (au * av))
+        + 16.0f * ((2.0f * cxx) * au + (2.0f * cyy) * av + axy * (au + av));
+    const float err = mag * SUB_BOX_ERR_REL + SUB_BOX_ERR_ABS;
+    if (!(err <= SUB_BOX_ERR_MAX)) return whole;
+    const float lf = logf(opa * 255.0f);
+    const float s = (lf + fabsf(lf) * BOX_L_REL + BOX_L_REL) + err;
+    if (!(s >= 0.0f)) return empty;
+    const float s4 = (4.0f * s) / det_lo;
+    const float hx = sqrtf(s4 * cyy);
+    const float hy = sqrtf(s4 * cxx);
+    const float ex = hx + hx * BOX_REL + (au + 1.0f) * BOX_REL;
+    const float ey = hy + hy * BOX_REL + (av + 1.0f) * BOX_REL;
+    const float c_lo = fmaxf(ceilf(ul - ex - 0.5f), 0.0f);
+    const float c_hi = fminf(floorf(ul + ex - 0.5f), (float)(SUB_W - 1));
+    const float r_lo = fmaxf(ceilf(vl - ey - 0.5f), 0.0f);
+    const float r_hi = fminf(floorf(vl + ey - 0.5f), (float)(SUB_H - 1));
+    if (!(c_lo <= c_hi && r_lo <= r_hi)) return empty;
+    return {(int)c_lo, (int)c_hi, (int)r_lo, (int)r_hi};
+}
+
+// The warps of a sub-tile block whose two pixel rows a box meets, as a bit
+// mask (bit w: rows 2w and 2w+1).
+__device__ __forceinline__ unsigned sub_box_warps(const PixBox& b) {
+    if (b.c_lo > b.c_hi || b.r_lo > b.r_hi) return 0u;
+    return (2u << (b.r_hi >> 1)) - (1u << (b.r_lo >> 1));
+}
+
 constexpr int ENC_Y = 4096;
-constexpr int FLUSH = 16;            // slots per moment flush
 constexpr int N_MOM = 7;             // 6 moments of d_sigma + sum of w*g_d
-constexpr int ROW_STRIDE = P_SUB + 1;  // padded (slot, pixel) staging row
+constexpr int SUB_CAP_DEP = 128;     // Pending ring entries per warp
+constexpr int SUB_CAP_CNT = 256;     // Pending counters
 
 __global__ void __launch_bounds__(P_SUB)
 subtile_bwd_kernel(const int* __restrict__ meta,
                    const float* __restrict__ proj8,
-                   const float* __restrict__ px_in, float* __restrict__ mom,
-                   long long m_pad, long long m_out, int n_tx) {
-    __shared__ float s_coef[8][CHUNK];
-    __shared__ float s_ds[FLUSH][ROW_STRIDE];
-    __shared__ float s_wg[FLUSH][ROW_STRIDE];
-    __shared__ float s_part[P_SUB / 32][FLUSH][N_MOM];
+                   const float* __restrict__ px_in,
+                   const int* __restrict__ chunks_done,
+                   float* __restrict__ mom, long long m_pad, long long m_out,
+                   int n_tx) {
+    // each warp's 32 staged slots: polynomial coefficients and box
+    __shared__ float s_coef[N_SUB_WARPS][8][32];
+    __shared__ int s_box[N_SUB_WARPS][4][32];
+    // each warp's moments of the met slots of its group, per slot
+    __shared__ float s_acc[N_SUB_WARPS][N_MOM][32];
+    extern __shared__ float4 s_dyn[];  // the pending multi-warp sums
 
     const int st = blockIdx.x;
     const int tid = threadIdx.x;
@@ -58,7 +191,7 @@ subtile_bwd_kernel(const int* __restrict__ meta,
     const int warp = tid >> 5;
     const int start = meta[1 + st];
     const int end = meta[2 + st];
-    const int n_chunks = (end - start) / CHUNK;
+    const int n_done = chunks_done[st];
     const int n_gx = n_tx * N_SUB_X;
     const int gy = st / n_gx;
     const int gx = st - gy * n_gx;
@@ -66,8 +199,16 @@ subtile_bwd_kernel(const int* __restrict__ meta,
     const float y0 = (float)((gy + meta[0]) * SUB_H);
     const float enc = (float)((gy + meta[0]) * ENC_Y + gx);
 
-    const float yl = (float)(tid / SUB_W) + 0.5f;
-    const float xl = (float)(tid % SUB_W) + 0.5f;
+    const Pending<N_MOM, SUB_CAP_DEP, SUB_CAP_CNT> pd =
+        pending_init<N_MOM, SUB_CAP_DEP, SUB_CAP_CNT>(s_dyn);
+    __syncthreads();
+
+    // this lane's pixel: row 2*warp + lane/16, column lane % 16 (= tid)
+    const int row = tid / SUB_W;
+    const int col = tid % SUB_W;
+    const int row_lane0 = lane & ~(SUB_W - 1);  // first lane of the row
+    const float yl = (float)row + 0.5f;
+    const float xl = (float)col + 0.5f;
     const float xx = xl * xl, xy = xl * yl, yy = yl * yl;
 
     const long long pix = (long long)st * P_SUB + tid;
@@ -76,43 +217,59 @@ subtile_bwd_kernel(const int* __restrict__ meta,
     const float g_a = px_in[3 * m_out + pix];
     const float g_tot = g_d * px_in[pix] + g_a * px_in[m_out + pix];
 
-    // reduction role of this thread: one pixel row of one slot per flush
-    const int red_slot = lane & (FLUSH - 1);
-    const int red_row = 2 * warp + (lane >> 4);
-    const float red_y = (float)red_row + 0.5f;
-
     float t = 1.0f, run = 0.0f;
-    int c = 0;
-    for (; c < n_chunks; ++c) {
-        // chunk-granular early stop; also the barrier that protects the
-        // staged chunk of the previous round
-        if (__syncthreads_or(t > T_EPS ? 1 : 0) == 0) break;
-        const long long base = (long long)start + (long long)c * CHUNK;
-        if (tid < CHUNK) {
-            float p8[8], coef[8];
+    bool walking = true;  // some pixel of this warp is still alive
+    int n_multi = 0;      // multi-warp slots before this group (every warp's)
+    int dcnt = 0;         // lane u < N_SUB_WARPS: warp u's deposits before it
+    for (int q = 0; q < n_done * GROUPS_PER_CHUNK; ++q) {
+        if (walking && q % GROUPS_PER_CHUNK == 0)
+            walking = __any_sync(0xffffffffu, t > T_EPS);
+        const long long cl = (long long)start + (long long)q * 32 + lane;
+        // stage slot cl in this lane, with its footprint box
+        float p8[8], coef[8];
 #pragma unroll
-            for (int r = 0; r < 8; ++r)
-                p8[r] = proj8[(long long)r * m_pad + base + tid];
-            coeff_mat(p8, x0, y0, coef);
+        for (int r = 0; r < 8; ++r) p8[r] = proj8[(long long)r * m_pad + cl];
+        coeff_mat(p8, x0, y0, coef);
+        const PixBox bx = subtile_box(coef, p8[0] - x0, p8[1] - y0);
+        __syncwarp();  // the previous group's readers are done
 #pragma unroll
-            for (int r = 0; r < 8; ++r) s_coef[r][tid] = coef[r];
+        for (int r = 0; r < 8; ++r) s_coef[warp][r][lane] = coef[r];
+        s_box[warp][0][lane] = bx.c_lo;
+        s_box[warp][1][lane] = bx.c_hi;
+        s_box[warp][2][lane] = bx.r_lo;
+        s_box[warp][3][lane] = bx.r_hi;
+        const unsigned wset = sub_box_warps(bx);
+        const unsigned met = __ballot_sync(0xffffffffu, (wset >> warp) & 1u);
+        if (warp == 0 && wset == 0u) {
+            // no pixel of the sub-tile can take this slot: its moments are 0
+#pragma unroll
+            for (int k = 0; k < N_MOM; ++k)
+                mom[(long long)k * m_pad + cl] = 0.0f;
+            mom[7LL * m_pad + cl] = enc;
         }
-        __syncthreads();
-        for (int sb = 0; sb < CHUNK; sb += FLUSH) {
-            for (int jj = 0; jj < FLUSH; ++jj) {
-                const int j = sb + jj;
-                const float opaok = s_coef[7][j];
+        __syncwarp();
+        unsigned todo = met;
+        while (todo != 0u) {
+            const int b = __ffs(todo) - 1;
+            todo &= todo - 1u;
+            float m[N_MOM];
+#pragma unroll
+            for (int k = 0; k < N_MOM; ++k) m[k] = 0.0f;
+            if (walking) {
+                const int c_lo = s_box[warp][0][b], c_hi = s_box[warp][1][b];
                 float ds = 0.0f, wg = 0.0f;
-                if (opaok != 0.0f) {
+                if (col >= c_lo && col <= c_hi && row >= s_box[warp][2][b]
+                    && row <= s_box[warp][3][b] && t > T_EPS) {
                     const float alpha = sub_alpha(
-                        s_coef[0][j], s_coef[1][j], s_coef[2][j],
-                        s_coef[3][j], s_coef[4][j], s_coef[5][j], opaok, xl,
-                        yl, xx, xy, yy);
+                        s_coef[warp][0][b], s_coef[warp][1][b],
+                        s_coef[warp][2][b], s_coef[warp][3][b],
+                        s_coef[warp][4][b], s_coef[warp][5][b],
+                        s_coef[warp][7][b], xl, yl, xx, xy, yy);
                     const float one_minus = 1.0f - alpha;
                     const float t_incl = t * one_minus;
                     const bool live = t_incl > T_EPS;
                     const float w = live ? t * alpha : 0.0f;
-                    const float phi = g_d * s_coef[6][j] + g_a;
+                    const float phi = g_d * s_coef[warp][6][b] + g_a;
                     run = run + w * phi;
                     const float suffix = g_tot - run;
                     const float inv_om =
@@ -124,46 +281,64 @@ subtile_bwd_kernel(const int* __restrict__ meta,
                     wg = w * g_d;
                     t = t_incl;
                 }
-                s_ds[jj][tid] = ds;
-                s_wg[jj][tid] = wg;
-            }
-            __syncthreads();
-            float s0 = 0.0f, sx = 0.0f, sxx = 0.0f, swg = 0.0f;
+                // the row sums in column order, over the box's columns
+                float s0 = 0.0f, sx = 0.0f, sxx = 0.0f, swg = 0.0f;
+                for (int cc = c_lo; cc <= c_hi; ++cc) {
+                    const float v = __shfl_sync(0xffffffffu, ds, row_lane0 + cc);
+                    const float g = __shfl_sync(0xffffffffu, wg, row_lane0 + cc);
+                    const float x = (float)cc + 0.5f;
+                    s0 = s0 + v;
+                    sx = sx + v * x;
+                    sxx = sxx + v * (x * x);
+                    swg = swg + g;
+                }
+                m[0] = s0;
+                m[1] = sx;
+                m[2] = yl * s0;
+                m[3] = sxx;
+                m[4] = yl * sx;
+                m[5] = (yl * yl) * s0;
+                m[6] = swg;
+                // lane 0 (row 2*warp) takes the row below (lane 16)
 #pragma unroll
-            for (int cc = 0; cc < SUB_W; ++cc) {
-                const int p = red_row * SUB_W + cc;
-                const float v = s_ds[red_slot][p];
-                const float x = (float)cc + 0.5f;
-                s0 = s0 + v;
-                sx = sx + v * x;
-                sxx = sxx + v * (x * x);
-                swg = swg + s_wg[red_slot][p];
+                for (int k = 0; k < N_MOM; ++k)
+                    m[k] = m[k] + __shfl_down_sync(0xffffffffu, m[k], 16);
             }
-            float m[N_MOM] = {s0, sx, red_y * s0, sxx, red_y * sx,
-                              (red_y * red_y) * s0, swg};
+            if (lane == 0) {
 #pragma unroll
-            for (int k = 0; k < N_MOM; ++k) {
-                // lanes 0-15 (row 2*warp) take the row below (lanes 16-31)
-                m[k] = m[k] + __shfl_down_sync(0xffffffffu, m[k], 16);
-                if (lane < FLUSH) s_part[warp][red_slot][k] = m[k];
-            }
-            __syncthreads();
-            if (tid < FLUSH * N_MOM) {
-                const int k = tid / FLUSH;
-                const int jj = tid - k * FLUSH;
-                float v = 0.0f;
-#pragma unroll
-                for (int w = 0; w < P_SUB / 32; ++w) v = v + s_part[w][jj][k];
-                mom[(long long)k * m_pad + base + sb + jj] = v;
-            } else if (tid < FLUSH * (N_MOM + 1)) {
-                const int jj = tid - FLUSH * N_MOM;
-                mom[7LL * m_pad + base + sb + jj] = enc;
+                for (int k = 0; k < N_MOM; ++k) s_acc[warp][k][b] = m[k];
             }
         }
+        // each lane finishes its own slot if this warp met it
+        int dix[N_SUB_WARPS], dix_w;
+        const unsigned multi = group_multi(wset, dcnt, dix, dix_w);
+        __syncwarp();
+        if ((met >> lane) & 1u) {
+            float acc[N_MOM], s[N_MOM];
+#pragma unroll
+            for (int k = 0; k < N_MOM; ++k) acc[k] = s_acc[warp][k][lane];
+            bool done = true;
+            if (__popc(wset) == 1) {
+                // this warp alone meets the slot: 0 + acc is its sum
+#pragma unroll
+                for (int k = 0; k < N_MOM; ++k) s[k] = 0.0f + acc[k];
+            } else {
+                done = pending_deposit(
+                    pd, warp, n_multi + __popc(multi & ((1u << lane) - 1u)),
+                    wset, dix_w, dix, acc, s);
+            }
+            if (done) {
+#pragma unroll
+                for (int k = 0; k < N_MOM; ++k)
+                    mom[(long long)k * m_pad + cl] = s[k];
+                mom[7LL * m_pad + cl] = enc;
+            }
+        }
+        n_multi += __popc(multi);
     }
-    // the chunks the early stop skipped hold no gradient: write zeros
-    for (long long i = (long long)start + (long long)c * CHUNK + tid; i < end;
-         i += P_SUB) {
+    // the chunks the walk skipped hold no gradient: write zeros
+    for (long long i = (long long)start + (long long)n_done * CHUNK + tid;
+         i < end; i += P_SUB) {
 #pragma unroll
         for (int r = 0; r < 8; ++r) mom[(long long)r * m_pad + i] = 0.0f;
     }
@@ -222,14 +397,20 @@ subtile_chain_kernel(const float* __restrict__ cam_p,
 }  // namespace gsl
 
 extern "C" int gsl_subtile_bwd(const void* meta, const void* proj8,
-                               const void* px_in, void* mom, int n_seg,
-                               long long m_pad, long long m_out, int n_tx,
-                               void* stream) {
+                               const void* px_in, const void* chunks_done,
+                               void* mom, int n_seg, long long m_pad,
+                               long long m_out, int n_tx, void* stream) {
     if ((long long)n_seg * gsl::P_SUB != m_out)
         return (int)cudaErrorInvalidValue;
-    gsl::subtile_bwd_kernel<<<n_seg, gsl::P_SUB, 0, (cudaStream_t)stream>>>(
+    constexpr size_t dyn =
+        gsl::pending_bytes<gsl::N_MOM, gsl::SUB_CAP_DEP, gsl::SUB_CAP_CNT>();
+    const cudaError_t attr = cudaFuncSetAttribute(
+        gsl::subtile_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dyn);
+    if (attr != cudaSuccess) return (int)attr;
+    gsl::subtile_bwd_kernel<<<n_seg, gsl::P_SUB, dyn, (cudaStream_t)stream>>>(
         (const int*)meta, (const float*)proj8, (const float*)px_in,
-        (float*)mom, m_pad, m_out, n_tx);
+        (const int*)chunks_done, (float*)mom, m_pad, m_out, n_tx);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
     const long long want = (m_pad + 255) / 256;

@@ -42,12 +42,12 @@ _F = ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream are c_void_p)
 _SIGNATURES = {
     "gsl_kcover_step_fwd": [_P, _P, _P, _I, _L, _I, _F, _F, _P],
-    "gsl_kcover_step_bwd": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _F, _I, _P],
+    "gsl_kcover_step_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _F, _I, _P],
     "gsl_kcover_select_records": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _F, _F, _P],
     "gsl_kcover_select": [_P, _P, _P, _I, _L, _L, _I, _I, _P],
     "gsl_project8": [_P, _P, _P, _L, _F, _F, _P],
     "gsl_subtile_fwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
-    "gsl_subtile_bwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
+    "gsl_subtile_bwd": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
     "gsl_subtile_chain": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
     "gsl_rasterize_fwd": [_P, _P, _P, _P, _I, _I, _L, _P],
     "gsl_rasterize_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _P],

@@ -41,6 +41,7 @@ from .fused_tracking import (
     _project_slots,
     cam_vector,
 )
+from .rasterize_tiles import BOX_DET_REL, BOX_L_REL, BOX_REL
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.999
@@ -114,6 +115,66 @@ def _sub_alpha(mat, mono):
     alpha = torch.clamp_max(mat[:, 7:8] * torch.exp(-sigma), ALPHA_MAX)
     ok = (sigma >= -SIG_EPS) & (alpha >= ALPHA_MIN)
     return torch.where(ok, alpha, 0.0)
+
+
+# margins of the sub-tile footprint box (csrc/subtile_bwd.cu, where they are
+# argued); BOX_DET_REL, BOX_L_REL and BOX_REL are the tile walks' own
+SUB_BOX_ERR_REL = 2.0 ** -18
+SUB_BOX_ERR_ABS = 2.0 ** -20
+SUB_BOX_ERR_MAX = 0.25
+
+
+def _subtile_box(coef, ul, vl):
+    """Sub-tile-local pixel box (c_lo, c_hi, r_lo, r_hi), inclusive and
+    clamped to the 16x16 sub-tile, of each slot's alpha-gate footprint:
+    every pixel centre outside it gets alpha 0 from `_sub_alpha`. The plain
+    form of csrc/subtile_bwd.cu subtile_box, in its f32 operation order (the
+    margins and the cases are argued there). coef: (..., 8) `_coeff_mat`
+    columns [c0, cx, cy, cxx, cxy, cyy, qz, opa*ok]; ul, vl: (...) the
+    slots' u - x0 and v - y0 in f32. An empty box is (SUB_W, -1, SUB_H,
+    -1), the whole sub-tile (0, SUB_W - 1, 0, SUB_H - 1). Returns four
+    int64 tensors of ul's shape."""
+    c0, cx, cy = coef[..., 0], coef[..., 1], coef[..., 2]
+    cxx, cxy, cyy, opa = coef[..., 3], coef[..., 4], coef[..., 5], coef[..., 7]
+    finite = (torch.isfinite(c0) & torch.isfinite(cx) & torch.isfinite(cy)
+              & torch.isfinite(cxx) & torch.isfinite(cxy)
+              & torch.isfinite(cyy) & torch.isfinite(opa)
+              & torch.isfinite(ul) & torch.isfinite(vl))
+    k1 = 4.0 * (cxx * cyy)
+    det_lo = (k1 - cxy * cxy) - k1 * BOX_DET_REL
+    pd = (cxx > 0.0) & (cyy > 0.0) & (det_lo > 0.0)
+    au, av, axy = ul.abs(), vl.abs(), cxy.abs()
+    mag = (c0.abs() + 16.0 * (cx.abs() + cy.abs())
+           + 256.0 * (cxx + axy + cyy)
+           + (cxx * (au * au) + cyy * (av * av) + axy * (au * av))
+           + 16.0 * ((2.0 * cxx) * au + (2.0 * cyy) * av + axy * (au + av)))
+    err = mag * SUB_BOX_ERR_REL + SUB_BOX_ERR_ABS
+    small = err <= SUB_BOX_ERR_MAX
+    lf = torch.log(opa * 255.0)
+    s = (lf + lf.abs() * BOX_L_REL + BOX_L_REL) + err
+    s4 = (4.0 * s) / det_lo
+    hx = torch.sqrt(s4 * cyy)
+    hy = torch.sqrt(s4 * cxx)
+    ex = hx + hx * BOX_REL + (au + 1.0) * BOX_REL
+    ey = hy + hy * BOX_REL + (av + 1.0) * BOX_REL
+    # fmaxf / fminf keep the number when the other operand is NaN
+    c_lo = torch.fmax(torch.ceil(ul - ex - 0.5), torch.zeros_like(ul))
+    c_hi = torch.fmin(torch.floor(ul + ex - 0.5),
+                      torch.full_like(ul, SUB_W - 1))
+    r_lo = torch.fmax(torch.ceil(vl - ey - 0.5), torch.zeros_like(vl))
+    r_hi = torch.fmin(torch.floor(vl + ey - 0.5),
+                      torch.full_like(vl, SUB_H - 1))
+    whole_t = torch.tensor([0, SUB_W - 1, 0, SUB_H - 1], device=ul.device)
+    empty_t = torch.tensor([SUB_W, -1, SUB_H, -1], device=ul.device)
+    box = (s >= 0.0) & (c_lo <= c_hi) & (r_lo <= r_hi)
+    out = torch.stack([c_lo, c_hi, r_lo, r_hi], dim=-1)
+    out = torch.where(box[..., None], out.long(), empty_t)
+    # the kernel's cases, the first that holds deciding: applied here from
+    # the last to the first
+    for case, val in ((~small, whole_t), (~pd, whole_t), (opa < 0.0, empty_t),
+                      (~finite, whole_t), (opa == 0.0, empty_t)):
+        out = torch.where(case[..., None], val, out)
+    return out.unbind(-1)
 
 
 def _seg_id(ti_global, tj, n_tx, s):
@@ -433,14 +494,18 @@ def _subtile_bwd_plain(proj8, sin, meta, n_ty, n_tx, stats=None):
     return mom
 
 
-def subtile_bwd(proj8, sin, meta, n_ty, n_tx):
+def subtile_bwd(proj8, sin, meta, n_ty, n_tx, chunks_done=None):
     """Per-slot pixel moments of the sub-tile walk's adjoint (see
-    `_subtile_bwd_plain` for the rows). CUDA tensor: the hand-written kernel
-    (csrc/subtile_bwd.cu subtile_bwd_kernel, which replaces the Pallas
-    _subtile_bwd_kernel; bound by operations — one block per sub-tile, one
-    thread per pixel, chunks staged in shared memory, moments summed per
-    slot in a fixed order without atomics). CPU tensor: the plain version
-    `_subtile_bwd_plain`."""
+    `_subtile_bwd_plain` for the rows). chunks_done: the forward's (n_seg,)
+    int32 chunk counts (`subtile_fwd` on the same proj8), the chunks the
+    walk covers. CUDA tensor: the hand-written kernel (csrc/subtile_bwd.cu
+    subtile_bwd_kernel, which replaces the Pallas _subtile_bwd_kernel;
+    bound by bytes — one block per sub-tile, one thread per pixel,
+    each warp two pixel rows walking on its own only the slots whose
+    footprint box (`_subtile_box`) meets its rows, moments summed per slot
+    in a fixed order without atomics); chunks_done is required there. CPU
+    tensor: the plain version `_subtile_bwd_plain` (which finds the chunks
+    itself)."""
     if not proj8.is_cuda:
         return _subtile_bwd_plain(proj8, sin, meta, n_ty, n_tx)
     n_seg = n_ty * n_tx * N_SUB
@@ -450,13 +515,19 @@ def subtile_bwd(proj8, sin, meta, n_ty, n_tx):
     kernels.require(sin, "sin", (4, m_out), device=proj8.device)
     kernels.require(meta, "meta", (n_seg + 2,), dtype=torch.int32,
                     device=proj8.device)
+    if chunks_done is None:
+        raise ValueError("subtile_bwd on the card takes the forward's "
+                         "chunks_done: pass subtile_fwd(...)[1]")
+    kernels.require(chunks_done, "chunks_done", (n_seg,), dtype=torch.int32,
+                    device=proj8.device)
     if mp % CHUNK:
         raise ValueError(f"proj8 length {mp} is not a multiple of {CHUNK}")
     mom = torch.empty((NUM_PROJ_ROWS, mp), dtype=F32, device=proj8.device)
     lib = kernels.load()
     err = lib.gsl_subtile_bwd(meta.data_ptr(), proj8.data_ptr(),
-                              sin.data_ptr(), mom.data_ptr(), n_seg, mp,
-                              m_out, n_tx, kernels.stream_ptr())
+                              sin.data_ptr(), chunks_done.data_ptr(),
+                              mom.data_ptr(), n_seg, mp, m_out, n_tx,
+                              kernels.stream_ptr())
     kernels.check(err, "subtile_bwd")
     subtile_bwd.launches += 1
     return mom
@@ -544,22 +615,22 @@ class _SubtileRender(torch.autograd.Function):
     def forward(ctx, slot3d, meta, cam, n_ty, n_tx, near, far):
         cam = cam.detach().contiguous()
         proj8 = project8(slot3d, cam, near, far)
-        out, _cd = subtile_fwd(proj8, meta, n_ty, n_tx)
-        ctx.save_for_backward(slot3d, proj8, meta, cam, out)
+        out, cd = subtile_fwd(proj8, meta, n_ty, n_tx)
+        ctx.save_for_backward(slot3d, proj8, meta, cam, out, cd)
         ctx.grid = (n_ty, n_tx)
         return (unscramble_image(out[0], n_ty, n_tx),
                 unscramble_image(out[1], n_ty, n_tx))
 
     @staticmethod
     def backward(ctx, g_dacc, g_alpha):
-        slot3d, proj8, meta, cam, out = ctx.saved_tensors
+        slot3d, proj8, meta, cam, out, cd = ctx.saved_tensors
         n_ty, n_tx = ctx.grid
         sin = torch.stack([
             out[0], out[1],
             scramble_image(g_dacc.to(F32), n_ty, n_tx),
             scramble_image(g_alpha.to(F32), n_ty, n_tx),
         ]).contiguous()  # (4, M_out)
-        mom = subtile_bwd(proj8, sin, meta, n_ty, n_tx)
+        mom = subtile_bwd(proj8, sin, meta, n_ty, n_tx, cd)
         d = subtile_chain(slot3d, mom, cam, meta, n_tx)
         zero = torch.zeros((2,), dtype=F32, device=cam.device)
         d_cam = torch.cat([zero, zero, d[0, :12], zero])

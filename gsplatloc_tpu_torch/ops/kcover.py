@@ -401,32 +401,50 @@ def render_kcover_ref(kbuf, cam, n_ty: int, n_tx: int,
             unscramble_image(aacc, n_ty, n_tx))
 
 
-def _kcover_step_bwd_plain(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a):
-    """Plain PyTorch hand-written backward to the pose: recompute the
-    forward, run the alpha-compositing backward over the K axis, and chain
-    d_sigma / the direct depth term to the pose with ONE `_pose_chain`
-    call. Each record instance touches exactly one pixel, so its moment
-    frame is that pixel itself (x0=px, y0=py): the only nonzero moment is
-    m0 = d_sigma. g_d/g_a: (M_out,) scrambled cotangents. Returns the 12
-    pose scalars [dR(9), dt(3)]."""
-    _, k_cover, m_out = kbuf.shape
-    g_d = g_d[None, :]
-    g_a = g_a[None, :]
+def _kcover_step_adjoint(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a,
+                         fwd=None):
+    """The compositing adjoint of the K-cover step per (record, pixel):
+    returns (pr, d_sigma (K, M_out), qz_bar (K, M_out), px, py). g_d/g_a:
+    (M_out,) scrambled cotangents; fwd: the forward's (2, M_out) rows
+    [depth_acc; alpha], or None to total them here from the recomputed
+    forward.
+
+    One sweep, as the kernel: the suffix sum of w*phi after record k is
+    g_tot - (running sum through k), with g_tot = g_d*depth_acc +
+    g_a*alpha. A record that is not live (the one whose inclusive
+    transmittance crosses T_EPS, and every later one) has d_alpha 0: its
+    exact suffix is 0, and the f32 suffix there is only the rounding
+    residue of g_tot against the running sum."""
     pr, alpha_raw, alpha, ok, live, t_excl, w, qz, px, py = (
         _kcover_fwd_pieces(kbuf, cam, n_ty, n_tx, near, far))
+    if fwd is None:
+        fwd = torch.stack([torch.sum(w * qz, dim=0), torch.sum(w, dim=0)])
+    g_tot = (g_d * fwd[0] + g_a * fwd[1])[None, :]
+    g_d = g_d[None, :]
+    g_a = g_a[None, :]
 
-    # d_alpha_k = live_k * t_excl_k * phi_k
-    #            - (sum_{j>k} phi_j w_j) / (1 - alpha_k)
+    # d_alpha_k = live_k * (t_excl_k * phi_k
+    #                       - (sum_{j>k} phi_j w_j) / (1 - alpha_k))
     phi = g_d * qz + g_a
-    wdw = w * phi
-    s_incl = torch.cumsum(wdw, dim=0)
-    suffix = s_incl[-1:, :] - s_incl
+    suffix = g_tot - torch.cumsum(w * phi, dim=0)
     inv_om = 1.0 / torch.clamp_min(1.0 - alpha, 1.0 - ALPHA_MAX)
     d_alpha = torch.where(live, t_excl * phi, 0.0) - suffix * inv_om
-    d_alpha = torch.where(ok & (alpha_raw < ALPHA_MAX), d_alpha, 0.0)
-    d_sigma = d_alpha * (-alpha)
-    qz_bar = w * g_d
+    d_alpha = torch.where(ok & live & (alpha_raw < ALPHA_MAX), d_alpha, 0.0)
+    return pr, d_alpha * (-alpha), w * g_d, px, py
 
+
+def _kcover_step_bwd_plain(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a,
+                           fwd=None):
+    """Plain PyTorch hand-written backward to the pose: the compositing
+    adjoint over the K axis (`_kcover_step_adjoint`, which takes g_d, g_a
+    and fwd), and the chain of d_sigma / the direct depth term to the pose
+    with ONE `_pose_chain` call. Each record instance touches exactly one
+    pixel, so its moment frame is that pixel itself (x0=px, y0=py): the
+    only nonzero moment is m0 = d_sigma. Returns the 12 pose scalars
+    [dR(9), dt(3)]."""
+    _, k_cover, m_out = kbuf.shape
+    pr, d_sigma, qz_bar, px, py = _kcover_step_adjoint(
+        kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, fwd)
     km = k_cover * m_out
     zero = torch.zeros((1, km), dtype=F32, device=kbuf.device)
     d = _pose_chain(
@@ -489,27 +507,35 @@ def kcover_step_fwd(kbuf, cam, n_ty, n_tx, near, far):
 
 kcover_step_fwd.launches = 0
 
-def kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a):
+def kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, fwd=None):
     """K-cover step backward: the 12 pose scalars [dR(9), dt(3)] from the
-    scrambled cotangent rows g_d/g_a (M_out,). CUDA tensor: the
-    hand-written kernel pair (csrc/kcover_step.cu kcover_step_bwd_kernel +
-    the fixed-order block reduction, which replace the Pallas
-    _kcover_step_bwd_kernel; bound by bytes; no float atomics, so
-    repeatable bit for bit). CPU tensor: `_kcover_step_bwd_plain`."""
+    scrambled cotangent rows g_d/g_a (M_out,) and the forward's (2, M_out)
+    rows fwd [depth_acc; alpha] (`kcover_step_fwd` at the same camera).
+    CUDA tensor: the hand-written kernel pair (csrc/kcover_step.cu
+    kcover_step_bwd_kernel + the fixed-order block reduction, which
+    replace the Pallas _kcover_step_bwd_kernel; bound by bytes — one sweep
+    reads each record once, the suffix sums taken from fwd; no float
+    atomics, so repeatable bit for bit); fwd is required there. CPU tensor:
+    `_kcover_step_bwd_plain` (which totals the forward itself when fwd is
+    None)."""
     if not kbuf.is_cuda:
         return _kcover_step_bwd_plain(kbuf, cam, n_ty, n_tx, near, far,
-                                      g_d, g_a)
+                                      g_d, g_a, fwd)
     k_cover, m_out = _check_step_args(kbuf, cam)
     kernels.require(g_d, "g_d", (m_out,), device=kbuf.device)
     kernels.require(g_a, "g_a", (m_out,), device=kbuf.device)
+    if fwd is None:
+        raise ValueError("kcover_step_bwd on the card takes the forward's "
+                         "(2, M_out) rows: pass fwd=kcover_step_fwd(...)")
+    kernels.require(fwd, "fwd", (2, m_out), device=kbuf.device)
     n_blocks = -(-m_out // kernels.REDUCE_THREADS)
     scratch = torch.empty((n_blocks, 12), dtype=F32, device=kbuf.device)
     out = torch.empty((12,), dtype=F32, device=kbuf.device)
     lib = kernels.load()
     err = lib.gsl_kcover_step_bwd(
-        cam.data_ptr(), kbuf.data_ptr(), g_d.data_ptr(), g_a.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), k_cover, m_out, n_tx,
-        float(near), float(far), n_blocks, kernels.stream_ptr())
+        cam.data_ptr(), kbuf.data_ptr(), fwd.data_ptr(), g_d.data_ptr(),
+        g_a.data_ptr(), scratch.data_ptr(), out.data_ptr(), k_cover, m_out,
+        n_tx, float(near), float(far), n_blocks, kernels.stream_ptr())
     kernels.check(err, "kcover_step_bwd")
     kcover_step_bwd.launches += 1
     return out
@@ -520,24 +546,25 @@ kcover_step_bwd.launches = 0
 
 class _RenderKcover(torch.autograd.Function):
     """K-cover render with the hand-written backward: forward saves
-    (kbuf, cam); backward returns d_cam with slots 4..15 filled."""
+    (kbuf, cam, its (2, M_out) rows); backward returns d_cam with slots
+    4..15 filled."""
 
     @staticmethod
     def forward(ctx, kbuf, cam, n_ty, n_tx, near, far):
         cam_c = cam.detach().contiguous()
         out = kcover_step_fwd(kbuf, cam_c, n_ty, n_tx, near, far)
-        ctx.save_for_backward(kbuf, cam_c)
+        ctx.save_for_backward(kbuf, cam_c, out)
         ctx.dims = (n_ty, n_tx, near, far)
         return (unscramble_image(out[0], n_ty, n_tx),
                 unscramble_image(out[1], n_ty, n_tx))
 
     @staticmethod
     def backward(ctx, gd_img, ga_img):
-        kbuf, cam = ctx.saved_tensors
+        kbuf, cam, out = ctx.saved_tensors
         n_ty, n_tx, near, far = ctx.dims
         g_d = scramble_image(gd_img, n_ty, n_tx).contiguous()
         g_a = scramble_image(ga_img, n_ty, n_tx).contiguous()
-        d = kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a)
+        d = kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, out)
         return None, _d_cam(d), None, None, None, None
 
 
