@@ -14,14 +14,15 @@ Phases (each raises on failure; nothing carries on on the CPU):
                timings and the least time the card could take for the same
                work; the index select against its plain version and its
                gathered records against the records select's, both at
-               K=16 and at K=12, bit for bit; for the five walks that
+               K=16 and at K=12, bit for bit; for the eight walks that
                skip the pixels outside each slot's footprint box (K6a,
-               K6b, K7a, K7b with `_footprint_box`; the sub-tile backward
-               K5a with `_subtile_box`), every gate hit of the walked
-               chunks inside its box, the pairs the boxes hold, how the
-               walk's slots fall on the 8 warps of a block, and the
-               kernels' registers and spills from the build's -Xptxas -v
-               (K2's too). K5a's bound counts the pairs inside its boxes,
+               K6b, K7a, K7b with `_footprint_box`; the sub-tile walks
+               K4b, K5a and the selects K3 (K=16) and K8 (K=12) with
+               `_subtile_box`), every gate hit of the walked slots inside
+               its box, the pairs the boxes hold, how the walk's slots
+               fall on the 8 warps of a block, and the kernels' registers
+               and spills from the build's -Xptxas -v (K2's too). The
+               sub-tile walks' bounds count the pairs inside their boxes,
                K2's one projection per record it reads.
   4. main    — one displaced synthetic RGB-D frame pair prepared
                (_assemble_pair) and pose-tracked (optimize_pose, default
@@ -291,20 +292,32 @@ def check_kernels(pair, dev):
     torch.cuda.synchronize()
     pms = (time.perf_counter() - t0) * 1e3
     err = float((out_k - out_p).abs().max())
+    bit_equal = torch.equal(out_k, out_p)
     cd_equal = torch.equal(cd_k, cd_p)
     log(f"[kernels] subtile_fwd: M_out={out_k.shape[1]} max_abs_err={err:.3e} "
-        f"bit_equal={torch.equal(out_k, out_p)} chunks_done_equal={cd_equal} "
+        f"bit_equal={bit_equal} chunks_done_equal={cd_equal} "
         f"chunks_walked={int(cd_k.sum())} (full size, no crop)")
-    if not err <= TOL_FWD or not cd_equal:
+    if not (bit_equal and cd_equal):
         raise RuntimeError("subtile_fwd disagrees with its plain version: "
                            f"err={err} chunks_done_equal={cd_equal}")
-    ms = time_ms(lambda: fs.subtile_fwd(p8_k, meta_p, n_ty, n_tx), 20)
     walked = int(cd_k.sum()) * fs.CHUNK
+    cull = subtile_box_check(p8_k, meta_p, cd_k.long() * fs.CHUNK, n_tx)
+    regs, spill_st, spill_ld = ptxas_usage("subtile_fwd_kernel")
+    log_cull("subtile_fwd", cull, None, walked, regs, spill_st, spill_ld)
+    ms = time_ms(lambda: fs.subtile_fwd(p8_k, meta_p, n_ty, n_tx), 20)
+    # operations: the staging of every walked slot, and the pair work only
+    # for the pairs inside the walked slots' footprint boxes (every gate
+    # hit lies inside; the unculled count was live slots x 256)
     entries.append(kernel_entry(
         "subtile_fwd", "gsplatloc_tpu_torch/csrc/subtile_fwd.cu",
         "gsplatloc_tpu/ops/fused_subtile.py:737", err, ms, pms,
-        bound(walked * 8 * 4 + 2 * 4 * out_k.shape[1] + 4 * (cd_k.numel() + meta_p.numel()),
-              stats["pairs"] * OPS_PAIR_WALK + walked * OPS_COEFF)))
+        bound(walked * 8 * 4 + 2 * 4 * out_k.shape[1]
+              + 4 * (cd_k.numel() + meta_p.numel()),
+              cull["box_pairs"] * OPS_PAIR_WALK + walked * OPS_COEFF),
+        walked_slots=walked, live_slot_pairs=stats["pairs"],
+        box_pairs=cull["box_pairs"], gate_hits=cull["hits"],
+        gate_hits_outside_box=cull["outside"], regs=regs,
+        spill_stores=spill_st, spill_loads=spill_ld))
     del slot_p, p8_k, p8_p, out_p, gt_scene
 
     # --- K3: select at the init pose of the tracking scene
@@ -329,20 +342,30 @@ def check_kernels(pair, dev):
     log(f"[kernels] kcover_select_records: B_pad={slot3d.shape[1]} "
         f"max_abs_err={err:.3e} bit_equal={torch.equal(kb_k, kb_p)} "
         f"render_err={r_err:.3e} (full size, no crop)")
-    if err != 0.0 or not r_err <= TOL_FWD:
+    if not torch.equal(kb_k, kb_p) or not r_err <= TOL_FWD:
         raise RuntimeError("kcover_select_records disagrees with its plain "
                            f"version: records {err}, render {r_err}")
+    p8 = fs.project8(slot3d, cam, NEAR, FAR)
+    cull = subtile_box_check(p8, meta, stats["seg_slots"], n_tx)
+    regs, spill_st, spill_ld = ptxas_usage("kcover_select_kernelILb0E")
+    log_cull("kcover_select_records", cull, None, stats["slots"], regs,
+             spill_st, spill_ld)
     ms = time_ms(lambda: kc.select_kcover_records(
         slot3d, meta, cam, n_ty, n_tx, K_COVER, NEAR, FAR), 20)
     entries.append(kernel_entry(
         "kcover_select_records", "gsplatloc_tpu_torch/csrc/kcover_select.cu",
         "gsplatloc_tpu/ops/kcover.py:511", err, ms, pms,
         bound(stats["slots"] * 5 * 4 + kb_k.numel() * 4 + meta.numel() * 4,
-              stats["pairs"] * OPS_PAIR_SELECT
+              cull["box_pairs"] * OPS_PAIR_SELECT
               + stats["slots"] * (OPS_PROJECT + OPS_COEFF)),
-        render_err=r_err))
+        render_err=r_err, walked_slots=stats["slots"],
+        live_slot_pairs=stats["pairs"], box_pairs=cull["box_pairs"],
+        gate_hits=cull["hits"], gate_hits_outside_box=cull["outside"],
+        regs=regs, spill_stores=spill_st, spill_loads=spill_ld))
     del kb_p, r_k, r_p
-    entries.append(check_index_select(slot3d, meta, cam, kb_k, n_ty, n_tx))
+    entries.append(check_index_select(slot3d, meta, cam, p8, kb_k, n_ty,
+                                      n_tx))
+    del p8
     del slot3d
 
     # --- K1 / K2: the step render at a pose about a pixel away from the
@@ -423,14 +446,13 @@ def check_kernels(pair, dev):
     return entries
 
 
-def check_index_select(slot3d, meta, cam, kb_k, n_ty, n_tx):
-    """K8 on the phase-3 K-cover slot buffer, fed by K4a: bit-equal to its
-    plain version at K=16 and at K=12, and its columns gathered into
-    records (the index route of build_kcover_buffer) bit-equal to K3's
-    records at K=16 (kb_k) and at K=12. The row's time, plain time and
-    bound are those at K=12, the K of the path that launches K8 (phase
-    9); the K=16 time rides along as ms_k16."""
-    p8 = fs.project8(slot3d, cam, NEAR, FAR)
+def check_index_select(slot3d, meta, cam, p8, kb_k, n_ty, n_tx):
+    """K8 on the phase-3 K-cover slot buffer, fed by K4a (p8): bit-equal
+    to its plain version at K=16 and at K=12, and its columns gathered
+    into records (the index route of build_kcover_buffer) bit-equal to
+    K3's records at K=16 (kb_k) and at K=12. The row's time, plain time,
+    footprint cull and bound are those at K=12, the K of the path that
+    launches K8 (phase 9); the K=16 time rides along as ms_k16."""
     dummy = float(slot3d.shape[1])
     runs = {}
     for k in (K_COVER, K_INDEX):
@@ -465,15 +487,22 @@ def check_index_select(slot3d, meta, cam, kb_k, n_ty, n_tx):
                        out_bytes=idx_k.numel() * 4)
         del idx_k
     r = runs[K_INDEX]
+    cull = subtile_box_check(p8, meta, r["stats"]["seg_slots"], n_tx)
+    regs, spill_st, spill_ld = ptxas_usage("kcover_select_kernelILb1E")
+    log_cull(f"kcover_select (K={K_INDEX})", cull, None, r["stats"]["slots"],
+             regs, spill_st, spill_ld)
     return kernel_entry(
         "kcover_select", "gsplatloc_tpu_torch/csrc/kcover_select.cu",
         "gsplatloc_tpu/ops/kcover.py:540",
         max(r["err"], runs[K_COVER]["err"]), r["ms"], r["pms"],
         bound(r["stats"]["slots"] * 8 * 4 + r["out_bytes"] + meta.numel() * 4,
-              r["stats"]["pairs"] * OPS_PAIR_SELECT
+              cull["box_pairs"] * OPS_PAIR_SELECT
               + r["stats"]["slots"] * OPS_COEFF),
         k_cover=K_INDEX, walked_slots=r["stats"]["slots"],
-        pairs=r["stats"]["pairs"], ms_k16=runs[K_COVER]["ms"])
+        live_slot_pairs=r["stats"]["pairs"], box_pairs=cull["box_pairs"],
+        gate_hits=cull["hits"], gate_hits_outside_box=cull["outside"],
+        regs=regs, spill_stores=spill_st, spill_loads=spill_ld,
+        ms_k16=runs[K_COVER]["ms"])
 
 
 def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
@@ -517,7 +546,7 @@ def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
         raise RuntimeError("subtile_bwd disagrees with its plain version: "
                            f"rows {rel_rows}, row7 {row7}, zero-fill "
                            f"{zeros_equal}, repeatable {repeat}")
-    cull = subtile_box_check(p8, meta, cd, n_tx)
+    cull = subtile_box_check(p8, meta, cd.long() * fs.CHUNK, n_tx)
     regs, spill_st, spill_ld = ptxas_usage("subtile_bwd_kernel")
     log_cull("subtile_bwd", cull, None, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: fs.subtile_bwd(p8, sin, meta, n_ty, n_tx, cd), 20)
@@ -683,12 +712,14 @@ def box_check(records, meta, cd, n_tx):
     return out
 
 
-def subtile_box_check(p8, meta, cd, n_tx, batch=512):
-    """The footprint cull of the sub-tile backward walk (K5a) against the
-    gates, over every chunk each sub-tile's walk reached: box_check's
-    counts with `_subtile_box` for the boxes, `_sub_alpha` for the gates
-    and the 8 warps of a sub-tile block (warp w: pixel rows 2w and 2w+1)."""
-    n = cd.shape[0]
+def subtile_box_check(p8, meta, n_walk, n_tx, batch=512):
+    """The footprint cull of the sub-tile walks (K4b, K5a, K3 and K8)
+    against the gates, over the first n_walk[s] slots of each segment s
+    (the slots its walk reached): box_check's counts with `_subtile_box`
+    for the boxes, `_sub_alpha` for the gates and the 8 warps of a
+    sub-tile block (warp w: pixel rows 2w and 2w+1), taken in 128-slot
+    chunks."""
+    n = n_walk.shape[0]
     dev = p8.device
     starts, _ = fs._segment_bounds(meta, n)
     x0, y0 = fs._segment_origins(meta, n, n_tx)
@@ -700,27 +731,32 @@ def subtile_box_check(p8, meta, cd, n_tx, batch=512):
                multi_warp_slots=0)
     chunk_sync = torch.zeros(n, device=dev)
     per_warp = torch.zeros((n, 8), device=dev)
-    cdl = cd.long()
+    nw = n_walk.to(dev).long()
+    cdl = (nw + fs.CHUNK - 1) // fs.CHUNK
+    lane = torch.arange(fs.CHUNK, device=dev)
     for c in range(int(cdl.max()) if n else 0):
         act_all = torch.nonzero(c < cdl)[:, 0]
         for act in act_all.split(batch):
             m = act.numel()
+            # the walked slots of this chunk
+            walked = (c * fs.CHUNK + lane[None, :] < nw[act][:, None])
+            walked = walked.reshape(-1)
             idx = (starts[act][:, None] + c * fs.CHUNK
-                   + torch.arange(fs.CHUNK, device=dev)[None, :]).reshape(-1)
+                   + lane[None, :]).reshape(-1).clamp_max(p8.shape[1] - 1)
             xa = x0[act].repeat_interleave(fs.CHUNK)
             ya = y0[act].repeat_interleave(fs.CHUNK)
             rec = p8[:, idx]
             coef = fs._coeff_mat(rec, xa[None, :], ya[None, :])
             c_lo, c_hi, r_lo, r_hi = fs._subtile_box(coef, rec[0] - xa,
                                                      rec[1] - ya)
-            hit = fs._sub_alpha(coef, mono) > 0.0
+            hit = (fs._sub_alpha(coef, mono) > 0.0) & walked[:, None]
             inside = ((col >= c_lo[:, None]) & (col <= c_hi[:, None])
                       & (row >= r_lo[:, None]) & (row <= r_hi[:, None]))
             out["hits"] += int(hit.sum())
             out["outside"] += int((hit & ~inside).sum())
             del hit, inside
             area = ((c_hi - c_lo + 1).clamp_min(0)
-                    * (r_hi - r_lo + 1).clamp_min(0))
+                    * (r_hi - r_lo + 1).clamp_min(0)) * walked
             out["box_pairs"] += int(area.sum())
             met = ((area > 0)[:, None] & (r_lo[:, None] <= 2 * w_ids + 1)
                    & (r_hi[:, None] >= 2 * w_ids)).reshape(m, fs.CHUNK, 8)

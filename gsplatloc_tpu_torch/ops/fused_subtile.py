@@ -117,7 +117,7 @@ def _sub_alpha(mat, mono):
     return torch.where(ok, alpha, 0.0)
 
 
-# margins of the sub-tile footprint box (csrc/subtile_bwd.cu, where they are
+# margins of the sub-tile footprint box (csrc/subtile.cuh, where they are
 # argued); BOX_DET_REL, BOX_L_REL and BOX_REL are the tile walks' own
 SUB_BOX_ERR_REL = 2.0 ** -18
 SUB_BOX_ERR_ABS = 2.0 ** -20
@@ -128,7 +128,7 @@ def _subtile_box(coef, ul, vl):
     """Sub-tile-local pixel box (c_lo, c_hi, r_lo, r_hi), inclusive and
     clamped to the 16x16 sub-tile, of each slot's alpha-gate footprint:
     every pixel centre outside it gets alpha 0 from `_sub_alpha`. The plain
-    form of csrc/subtile_bwd.cu subtile_box, in its f32 operation order (the
+    form of csrc/subtile.cuh subtile_box, in its f32 operation order (the
     margins and the cases are argued there). coef: (..., 8) `_coeff_mat`
     columns [c0, cx, cy, cxx, cxy, cyy, qz, opa*ok]; ul, vl: (...) the
     slots' u - x0 and v - y0 in f32. An empty box is (SUB_W, -1, SUB_H,
@@ -380,8 +380,9 @@ def subtile_fwd(proj8, meta, n_ty, n_tx):
     Returns (out (2, M_out) scrambled rows [depth_acc; alpha], chunks_done
     (n_seg,) int32 in 128-slot chunks). CUDA tensor: the hand-written
     kernel (csrc/subtile_fwd.cu subtile_fwd_kernel, which replaces the
-    Pallas _subtile_fwd_kernel; bound by operations — one block per
-    sub-tile, one thread per pixel, chunks staged in shared memory). CPU
+    Pallas _subtile_fwd_kernel; bound by bytes — one block per sub-tile,
+    one thread per pixel, chunks staged and boxed in shared memory, each
+    warp walking only the slots whose footprint box meets its rows). CPU
     tensor: the plain version `_subtile_fwd_plain`."""
     if not proj8.is_cuda:
         return _subtile_fwd_plain(proj8, meta, n_ty, n_tx)

@@ -92,8 +92,9 @@ def _select_walk(p8, rows, fill, meta, n_ty, n_tx, k_cover, stats=None):
     never fills hold `fill`. Reads the longest segment length (and a done
     flag every 64 slots) back to the host. stats (optional dict) receives
     the work this input needs: `pairs` ((slot, pixel) pairs met by a
-    still-selecting pixel) and `slots` (slots met by a sub-tile with at
-    least one such pixel). Returns (R, K, M_out)."""
+    still-selecting pixel), `slots` (slots met by a sub-tile with at
+    least one such pixel) and `seg_slots` ((n_seg,) int64: those slots of
+    each segment, its first ones). Returns (R, K, M_out)."""
     dev = p8.device
     n_seg = n_ty * n_tx * N_SUB
     m_out = n_seg * P_SUB
@@ -109,7 +110,7 @@ def _select_walk(p8, rows, fill, meta, n_ty, n_tx, k_cover, stats=None):
     t = torch.ones((n_seg, P_SUB), dtype=F32, device=dev)
     cnt = torch.zeros((n_seg, P_SUB), dtype=torch.int64, device=dev)
     n_pairs = torch.zeros((), dtype=torch.int64, device=dev)
-    n_slots = torch.zeros((), dtype=torch.int64, device=dev)
+    seg_slots = torch.zeros((n_seg,), dtype=torch.int64, device=dev)
     for j in range(max_len):
         if j % 64 == 0:
             busy = (t > T_EPS) & (cnt < k_cover) & (j < seg_len)[:, None]
@@ -123,7 +124,7 @@ def _select_walk(p8, rows, fill, meta, n_ty, n_tx, k_cover, stats=None):
         if stats is not None:
             sel = (t > T_EPS) & (cnt < k_cover) & inseg
             n_pairs += sel.sum()
-            n_slots += sel.any(dim=1).sum()
+            seg_slots += sel.any(dim=1)
         rec = rows[:, idx].T  # (n_seg, R)
         index = cnt.clamp_max(k_cover - 1)[:, None, None, :].expand(
             n_seg, 1, n_rows, P_SUB)
@@ -135,7 +136,8 @@ def _select_walk(p8, rows, fill, meta, n_ty, n_tx, k_cover, stats=None):
         t = torch.where(hit, t * (1.0 - alpha), t)
     if stats is not None:
         stats["pairs"] = int(n_pairs)
-        stats["slots"] = int(n_slots)
+        stats["slots"] = int(seg_slots.sum())
+        stats["seg_slots"] = seg_slots
     # (n_seg, K, R, P) -> (R, K, M_out)
     return out.permute(2, 1, 0, 3).reshape(n_rows, k_cover, m_out).contiguous()
 
@@ -166,9 +168,11 @@ def select_kcover_records(slot3d, meta, cam, n_ty: int, n_tx: int,
 
     CUDA tensor: the hand-written kernel (csrc/kcover_select.cu, the
     records form of kcover_select_kernel, which replaces the Pallas
-    _kcover_select_records_kernel; bound by operations — one block per
-    sub-tile, one thread per pixel, slots projected once while staged into
-    shared memory). CPU tensor: `_select_records_plain`."""
+    _kcover_select_records_kernel; bound by bytes — one block per
+    sub-tile, one thread per pixel, slots projected and boxed once while
+    staged into shared memory, each warp walking only the slots whose
+    footprint box meets its rows, every entry written once). CPU tensor:
+    `_select_records_plain`."""
     if not slot3d.is_cuda:
         return _select_records_plain(slot3d, meta, cam, n_ty, n_tx, k_cover,
                                      near, far)
@@ -180,8 +184,8 @@ def select_kcover_records(slot3d, meta, cam, n_ty: int, n_tx: int,
                     device=slot3d.device)
     cam = cam.detach().contiguous()
     kernels.require_cam(cam, slot3d.device)
-    # uncovered entries are zero records: the kernel writes hits only
-    out = torch.zeros((NREC_KC, k_cover, m_out), dtype=F32,
+    # the kernel writes every entry (uncovered: the zero record)
+    out = torch.empty((NREC_KC, k_cover, m_out), dtype=F32,
                       device=slot3d.device)
     lib = kernels.load()
     err = lib.gsl_kcover_select_records(
@@ -220,9 +224,8 @@ def select_kcover(proj8, meta, n_ty: int, n_tx: int, k_cover: int):
     kernels.require(proj8, "proj8", (NUM_PROJ_ROWS, m_pad))
     kernels.require(meta, "meta", (n_seg + 2,), dtype=torch.int32,
                     device=proj8.device)
-    # uncovered entries hold the dummy column: the kernel writes hits only
-    out = torch.full((k_cover, m_out), float(m_pad), dtype=F32,
-                     device=proj8.device)
+    # the kernel writes every entry (uncovered: the dummy column)
+    out = torch.empty((k_cover, m_out), dtype=F32, device=proj8.device)
     lib = kernels.load()
     err = lib.gsl_kcover_select(
         meta.data_ptr(), proj8.data_ptr(), out.data_ptr(), k_cover, m_pad,

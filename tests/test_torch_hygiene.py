@@ -65,7 +65,7 @@ def test_package_layout_mirrors_the_reference():
         "rasterize_bwd.cu", "rasterize_fwd.cu", "subtile_bwd.cu",
         "subtile_fwd.cu"]
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
-        "project.cuh", "rasterize.cuh", "reduce.cuh"]
+        "project.cuh", "rasterize.cuh", "reduce.cuh", "subtile.cuh"]
     # the port builds its own copy of the kNN sources, never the reference's
     assert sorted(p.name for p in (PKG / "native" / "src").iterdir()) == [
         "kdtree.h", "knn_capi.cc"]

@@ -1,6 +1,6 @@
 """The footprint cull of the sub-tile backward walk (K5a, csrc/subtile_bwd.cu)
 on the CPU, where no kernel runs: its box (`_subtile_box`, the plain form of
-csrc/subtile_bwd.cu subtile_box) holds every pair that passes `_sub_alpha`'s
+csrc/subtile.cuh subtile_box) holds every pair that passes `_sub_alpha`'s
 gates, and the kernel's walk rules, emulated in torch with the kernel's
 operation order, give moments bit-equal to an emulation of the unculled
 walk it replaces.
