@@ -14,16 +14,19 @@ Phases (each raises on failure; nothing carries on on the CPU):
                timings and the least time the card could take for the same
                work; the index select against its plain version and its
                gathered records against the records select's, both at
-               K=16 and at K=12, bit for bit; for the eight walks that
+               K=16 and at K=12, bit for bit; for the nine walks that
                skip the pixels outside each slot's footprint box (K6a,
-               K6b, K7a, K7b with `_footprint_box`; the sub-tile walks
-               K4b, K5a and the selects K3 (K=16) and K8 (K=12) with
-               `_subtile_box`), every gate hit of the walked slots inside
-               its box, the pairs the boxes hold, how the walk's slots
-               fall on the 8 warps of a block, and the kernels' registers
-               and spills from the build's -Xptxas -v (K2's too). The
-               sub-tile walks' bounds count the pairs inside their boxes,
-               K2's one projection per record it reads.
+               K6b, K7a, K7b and K7c with `_footprint_box`; the sub-tile
+               walks K4b, K5a and the selects K3 (K=16) and K8 (K=12)
+               with `_subtile_box`), every gate hit of the walked slots
+               inside its box, the pairs the boxes hold, how the walk's
+               slots fall on the 8 warps of a block, and the kernels'
+               registers and spills from the build's -Xptxas -v (K2's
+               and K5b's too). The probe K7c runs first and must be
+               bit-equal to its plain version before anything else runs;
+               K5b also reports its distance from a float64 replay of the
+               chain. The sub-tile walks' bounds count the pairs inside
+               their boxes, K2's one projection per record it reads.
   4. main    — one displaced synthetic RGB-D frame pair prepared
                (_assemble_pair) and pose-tracked (optimize_pose, default
                K-cover configuration, max_steps=300), run twice; launch
@@ -576,12 +579,17 @@ def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
     err = float((d_k - d_p).abs().max())
     rel = err / float(d_p.abs().max())
     repeat = torch.equal(d_k, d_k2)
+    f64_rel, f64_rel_plain = chain_f64_errors(slot, mom_k, cam_s, meta, n_tx,
+                                              d_k, d_p)
     lo, hi = int(meta[1]), int(meta[-1])
     in_range = hi - lo
     nonzero = int((mom_k[:7, lo:hi] != 0).any(dim=0).sum())
+    regs, spill_st, spill_ld = ptxas_usage("subtile_chain_kernel")
     log(f"[kernels] subtile_chain: slots_in_range={in_range} "
         f"slots_with_moments={nonzero} max_abs_err={err:.3e} "
-        f"max_rel_err={rel:.3e} bitwise_repeatable={repeat}")
+        f"max_rel_err={rel:.3e} bitwise_repeatable={repeat}; from the "
+        f"float64 replay {f64_rel:.3e} (plain version {f64_rel_plain:.3e}); "
+        f"registers {regs}, spill stores/loads {spill_st}/{spill_ld} bytes")
     if not rel <= TOL_BWD_REL or not repeat:
         raise RuntimeError(f"subtile_chain disagrees: rel {rel}, "
                            f"repeatable {repeat}")
@@ -592,8 +600,19 @@ def check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx):
         bound(7 * 4 * in_range + (1 + 5) * 4 * nonzero + 4 * meta.numel()
               + 4 * 16,
               nonzero * (OPS_DECODE + OPS_PROJECT + OPS_CHAIN)),
-        max_rel_err=rel, slots_with_moments=nonzero))
+        max_rel_err=rel, f64_rel_err=f64_rel, slots_with_moments=nonzero,
+        regs=regs, spill_stores=spill_st, spill_loads=spill_ld))
     return entries
+
+
+def chain_f64_errors(slot, mom, cam, meta, n_tx, *ds):
+    """Distance of each pose partial row in ds from the chain replayed in
+    float64 on the same f32 inputs (`_chain_xla` on doubles), relative to
+    the replay's largest scalar."""
+    d64 = fs._chain_xla(slot.double(), mom.double(), cam.double(), meta,
+                        n_tx)
+    top = float(d64.abs().max())
+    return [float((d.double() - d64).abs().max()) / top for d in ds]
 
 
 def walked_slots(meta, cd):
@@ -953,6 +972,25 @@ def check_fused_tracking(pair, dev):
     m_pad = slot.shape[1]
     cam = cam_vector(vm, K, W, H).contiguous()
 
+    # K7c first: its walk is K7a's, and a miscompiled no-op in a walk has
+    # lost alpha before (nvcc 12.8, K7a), so nothing runs before the probe
+    # is bit-equal to its plain version at full size
+    c_k, pcd_k = ft.fused_probe(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_p, pcd_p = ft._fused_probe_plain(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
+    torch.cuda.synchronize()
+    probe_pms = (time.perf_counter() - t0) * 1e3
+    probe_err = float((c_k - c_p).abs().max())
+    log(f"[kernels] fused_probe: contrib_equal={torch.equal(c_k, c_p)} "
+        f"chunks_done_equal={torch.equal(pcd_k, pcd_p)} (full size, no "
+        "crop)")
+    if not (torch.equal(c_k, c_p) and torch.equal(pcd_k, pcd_p)):
+        raise RuntimeError(f"fused_probe disagrees with its plain version: "
+                           f"contrib err {probe_err}, chunks done equal "
+                           f"{torch.equal(pcd_k, pcd_p)}")
+    del c_p, pcd_p
+
     out_k, cd_k = ft.fused_fwd(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
     stats = {}
     torch.cuda.synchronize()
@@ -985,7 +1023,7 @@ def check_fused_tracking(pair, dev):
     # K7a and K7b walk the same chunks with the same boxes
     cull = box_check(proj, meta, cd_k, n_tx)
     del proj
-    regs, spill_st, spill_ld = ptxas_usage("fused_fwd_kernel")
+    regs, spill_st, spill_ld = ptxas_usage("fused_walk_kernelILb0E")
     log_cull("fused_fwd", cull, needed, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: ft.fused_fwd(slot, meta, cam, n_ty, n_tx, NEAR,
                                       FAR), 20)
@@ -1045,27 +1083,22 @@ def check_fused_tracking(pair, dev):
         multi_warp_slots=cull["multi_warp_slots"], regs=regs,
         spill_stores=spill_st, spill_loads=spill_ld))
 
-    c_k, pcd_k = ft.fused_probe(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    c_p, pcd_p = ft._fused_probe_plain(slot, meta, cam, n_ty, n_tx, NEAR, FAR)
-    torch.cuda.synchronize()
-    pms = (time.perf_counter() - t0) * 1e3
-    err = float((c_k - c_p).abs().max())
-    equal = torch.equal(c_k, c_p) and torch.equal(pcd_k, pcd_p)
+    # the probe at K7a's pose: its chunks are K7a's, and its cull is K7a's
+    # (box_check above: no gate hit outside the boxes at this pose)
     cd_same = torch.equal(pcd_k, cd_k)
     slot_c, meta_c = ft.compact_slot_buffer(slot, meta, c_k, pcd_k)
     kept, total = int(meta_c[-1] - meta_c[1]), int(meta[-1] - meta[1])
     out_c, cd_c = ft.fused_fwd(slot_c, meta_c, cam, n_ty, n_tx, NEAR, FAR)
     exact = torch.equal(out_c, out_k)
-    log(f"[kernels] fused_probe: contrib_equal={torch.equal(c_k, c_p)} "
-        f"chunks_done_equal={torch.equal(pcd_k, pcd_p)} same_walk_as_"
-        f"fused_fwd={cd_same} kept {kept} of {total} slots; compacted "
-        f"fused_fwd bit-equal at the probe pose: {exact} (chunks walked "
-        f"{int(cd_c.sum())} of {int(cd_k.sum())})")
-    if not (equal and cd_same and exact):
-        raise RuntimeError(f"fused_probe disagrees: equal {equal}, same walk "
-                           f"{cd_same}, compaction exact {exact}")
+    regs, spill_st, spill_ld = ptxas_usage("fused_walk_kernelILb1E")
+    log(f"[kernels] fused_probe: same_walk_as_fused_fwd={cd_same} kept "
+        f"{kept} of {total} slots; compacted fused_fwd bit-equal at the "
+        f"probe pose: {exact} (chunks walked {int(cd_c.sum())} of "
+        f"{int(cd_k.sum())}); registers {regs}, spill stores/loads "
+        f"{spill_st}/{spill_ld} bytes")
+    if not (cd_same and exact):
+        raise RuntimeError(f"fused_probe: same walk as fused_fwd {cd_same}, "
+                           f"compaction exact {exact}")
     ms = time_ms(lambda: ft.fused_probe(slot, meta, cam, n_ty, n_tx, NEAR,
                                         FAR), 20)
     # K7a and K7b on the compacted buffer, as the tracking loop runs them
@@ -1079,11 +1112,12 @@ def check_fused_tracking(pair, dev):
         f"fused_bwd {c_bwd_ms:.4f} ms")
     entries.append(kernel_entry(
         "fused_probe", "gsplatloc_tpu_torch/csrc/fused_tracking.cu",
-        "gsplatloc_tpu/ops/fused_tracking.py:578", err, ms, pms,
+        "gsplatloc_tpu/ops/fused_tracking.py:578", probe_err, ms, probe_pms,
         bound(rec_bytes + m_pad * 4 + small_bytes,
               walked * OPS_FUSED_SLOT + needed * OPS_RAST_EVAL
               + stats["hits"] * OPS_FUSED_PROBE_HIT),
-        kept_slots=kept, total_slots=total,
+        kept_slots=kept, total_slots=total, regs=regs,
+        spill_stores=spill_st, spill_loads=spill_ld,
         compacted_fused_fwd_ms=c_fwd_ms, compacted_fused_bwd_ms=c_bwd_ms))
     return entries
 
@@ -1504,11 +1538,11 @@ def main():
 
     # 3. kernels vs plain versions
     pair = make_pair()
-    entries = check_kernels(pair, dev)
+    entries = check_fused_tracking(pair, dev)
+    torch.cuda.empty_cache()
+    entries += check_kernels(pair, dev)
     torch.cuda.empty_cache()
     entries += check_rasterize(pair, dev)
-    torch.cuda.empty_cache()
-    entries += check_fused_tracking(pair, dev)
     torch.cuda.empty_cache()
 
     # 4. main path (K-cover, the product default), twice

@@ -13,10 +13,8 @@
 // opacity and of the pixel images, one write of the outputs), operations
 // for fused_bwd (the pose chain of every slot with a nonzero sum), with the
 // per-pair operations counted only over the (slot, pixel) pairs inside each
-// slot's alpha-gate footprint. fused_probe is far slower than its bound:
-// each walked slot meets all 2048 pixels of its 16x128 tile, as the
-// reference's kernel does. fused_fwd and fused_bwd walk only the pixels of
-// each slot's footprint box (below).
+// slot's alpha-gate footprint. All three walk only the pixels of each
+// slot's footprint box (below).
 //
 // In all three, the validity row is folded into the opacity (0 unless
 // ok), which gates alpha to 0 exactly as the plain version's explicit gate
@@ -29,7 +27,9 @@
 // Hillis-Steele scans, MXU payload products and speculative
 // double-buffered DMA have no counterpart: they exist only for Mosaic.
 //
-// fused_fwd walks as rasterize_fwd.cu does (whose note says more): each
+// fused_fwd and fused_probe are one walk template, fused_walk_kernel, with
+// a compile-time epilogue. It walks as rasterize_fwd.cu does (whose note
+// says more): each
 // warp on its own over the tile's segment, 32 slots at a time, its lanes
 // projecting the 32 slots into the warp's part of shared memory with
 // their footprint boxes (a slot that fails the ok gate, or whose opacity
@@ -75,15 +75,21 @@
 // equal the full walk's bit for bit, and a gradient and a tracking run
 // repeat bit for bit.
 //
-// fused_probe: the block-synchronous walk of the reference: one block per
-// tile, 128-slot chunks from floor(start/128)*128 projected by threads
-// 0-127 into shared memory, a block vote for the chunk-granular stop (the
-// chunks fused_fwd's warps walk, since T only falls). Each thread keeps,
-// per 32 slots, a bit mask of the slots that reach one of its pixels
-// (alpha > 0 at a live T_prefix), the warp ORs the masks, and threads
-// 0-127 OR the 8 warps' and write contrib = 1.0 or 0.0 for the chunk's
-// in-segment columns. A block writes only its own segment's walked
-// columns; the wrapper zero-fills the buffer.
+// fused_probe runs fused_fwd's walk with the same recurrence (a pixel
+// updates T = T*(1-alpha) wherever T > T_EPS and alpha != 0, so its T and
+// its stops are fused_fwd's, and its chunks_done equals fused_fwd's) and
+// no accumulators or image. A slot reaches a pixel exactly where that
+// update happens. Per 32-slot group each lane keeps a bit mask of the
+// staged slots that reached one of its 8 pixels, the warp ORs the masks
+// (__reduce_or_sync), and the lane that staged a reached slot writes
+// contrib = 1.0f at its column. A slot that several warps reach gets the
+// same 1.0f from each: idempotent, deterministic, no float atomics. Only
+// in-segment slots have a box, so a block writes only its own segment's
+// walked columns; the wrapper zero-fills the buffer, so every other column,
+// and every walked slot that reached no pixel, stays 0. A slot skipped by
+// the cull has alpha 0 at every pixel it skips, and a warp that stopped
+// has no live pixel left, so neither could have reached a pixel: contrib
+// is the block-synchronous walk's, bit for bit.
 #include "rasterize.cuh"
 #include "reduce.cuh"
 
@@ -111,18 +117,6 @@ __device__ __forceinline__ void project_slot(const float* __restrict__ slot3d,
     out[6] = (p8[7] != 0.0f) ? p8[6] : 0.0f;
 }
 
-// Threads 0..CHUNK-1 project slot col0 + threadIdx.x into s_p.
-__device__ __forceinline__ void stage_projected(
-        const float* __restrict__ slot3d, long long col0, long long m_pad,
-        const Cam& cam, float near_p, float far_p, float (*s_p)[CHUNK]) {
-    const int j = threadIdx.x;
-    if (j >= CHUNK) return;
-    float o[N_PROJ];
-    project_slot(slot3d, col0 + j, m_pad, cam, near_p, far_p, o);
-#pragma unroll
-    for (int k = 0; k < N_PROJ; ++k) s_p[k][j] = o[k];
-}
-
 struct TileWalk {
     int tile, ti, tj, col, row0, start, end, base, n_chunks;
     float px;
@@ -144,11 +138,16 @@ __device__ __forceinline__ TileWalk tile_walk(const int* __restrict__ meta,
     return w;
 }
 
+// The forward walk of one 16x128 tile (K7a, kProbe false: out is the
+// (2, hp, wp) image) or the probe's (K7c, kProbe true: out is contrib, and a
+// lane that staged a slot some lane of the warp reached writes 1.0f there).
+template <bool kProbe>
 __global__ void __launch_bounds__(RAST_THREADS, 4)
-fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
-                 const float* __restrict__ slot3d, float* __restrict__ out,
-                 int* __restrict__ chunks_done, int n_tx, long long m_pad,
-                 long long plane, int wp, float near_p, float far_p) {
+fused_walk_kernel(const int* __restrict__ meta,
+                  const float* __restrict__ cam_p,
+                  const float* __restrict__ slot3d, float* __restrict__ out,
+                  int* __restrict__ chunks_done, int n_tx, long long m_pad,
+                  long long plane, int wp, float near_p, float far_p) {
     // each warp's 32 staged slots: projected rows (opacity * ok) and box
     __shared__ float s_p[N_RAST_WARPS][N_PROJ][32];
     __shared__ int s_box[N_RAST_WARPS][4][32];
@@ -200,6 +199,7 @@ fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
         unsigned todo =
             __ballot_sync(0xffffffffu, (box_warps(bx) >> warp) & 1u);
         __syncwarp();
+        unsigned reached = 0u;  // K7c: the group's slots this lane reached
         while (todo != 0u) {
             const int b = __ffs(todo) - 1;
             todo &= todo - 1u;
@@ -212,6 +212,7 @@ fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
             const float ca = s_p[warp][2][b], cb = s_p[warp][3][b];
             const float cc = s_p[warp][4][b], qz = s_p[warp][5][b];
             const float opa = s_p[warp][6][b];
+            bool reach = false;
 #pragma unroll
             for (int p = 0; p < PX_PER_THREAD; ++p) {
                 // a row outside the box (the same for the warp)
@@ -220,20 +221,32 @@ fused_fwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
                 const float alpha = tile_alpha(dx, py[p] - v, ca, cb, cc, opa);
                 if (alpha == 0.0f) continue;
                 const float t_incl = t[p] * (1.0f - alpha);
-                const float w = (t_incl > T_EPS) ? t[p] * alpha : 0.0f;
-                acc_d[p] = acc_d[p] + qz * w;
-                acc_a[p] = acc_a[p] + w;
+                if constexpr (kProbe) {
+                    reach = true;
+                } else {
+                    const float w = (t_incl > T_EPS) ? t[p] * alpha : 0.0f;
+                    acc_d[p] = acc_d[p] + qz * w;
+                    acc_a[p] = acc_a[p] + w;
+                }
                 t[p] = t_incl;
             }
+            if (reach) reached |= 1u << b;
+        }
+        if constexpr (kProbe) {
+            // the slots some lane reached; a reached slot is in the segment
+            reached = __reduce_or_sync(0xffffffffu, reached);
+            if ((reached >> lane) & 1u) out[cl] = 1.0f;
         }
     }
     if (lane == 0) s_stop[warp] = q / GROUPS_PER_CHUNK;
+    if constexpr (!kProbe) {
 #pragma unroll
-    for (int p = 0; p < PX_PER_THREAD; ++p) {
-        const long long pix = (long long)(tw.ti * TILE_H + tw.row0 + p) * wp
-                              + tw.tj * TILE_W + tw.col;
-        out[pix] = acc_d[p];
-        out[plane + pix] = acc_a[p];
+        for (int p = 0; p < PX_PER_THREAD; ++p) {
+            const long long pix = (long long)(tw.ti * TILE_H + tw.row0 + p)
+                                  * wp + tw.tj * TILE_W + tw.col;
+            out[pix] = acc_d[p];
+            out[plane + pix] = acc_a[p];
+        }
     }
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -463,75 +476,6 @@ fused_bwd_kernel(const int* __restrict__ meta, const float* __restrict__ cam_p,
     }
 }
 
-__global__ void __launch_bounds__(RAST_THREADS)
-fused_probe_kernel(const int* __restrict__ meta,
-                   const float* __restrict__ cam_p,
-                   const float* __restrict__ slot3d,
-                   float* __restrict__ contrib, int* __restrict__ chunks_done,
-                   int n_tx, long long m_pad, float near_p, float far_p) {
-    __shared__ float s_p[N_PROJ][CHUNK];
-    __shared__ unsigned s_or[N_RAST_WARPS][CHUNK / 32];
-
-    const TileWalk tw = tile_walk(meta, n_tx);
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const Cam cam = load_cam(cam_p);
-    float py[PX_PER_THREAD], t[PX_PER_THREAD];
-#pragma unroll
-    for (int p = 0; p < PX_PER_THREAD; ++p) {
-        py[p] = (float)((tw.ti + meta[0]) * TILE_H + tw.row0 + p) + 0.5f;
-        t[p] = 1.0f;
-    }
-
-    int c = 0;
-    for (; c < tw.n_chunks; ++c) {
-        int alive = 0;
-#pragma unroll
-        for (int p = 0; p < PX_PER_THREAD; ++p) alive |= (t[p] > T_EPS);
-        // chunk-granular stop, as fused_fwd; also the barrier that protects
-        // s_p and s_or of the previous round
-        if (__syncthreads_or(alive) == 0) break;
-        const long long col0 = (long long)tw.base + (long long)c * CHUNK;
-        stage_projected(slot3d, col0, m_pad, cam, near_p, far_p, s_p);
-        __syncthreads();
-        const int j_lo = max(tw.start - (int)col0, 0);
-        const int j_hi = min(tw.end - (int)col0, CHUNK);
-        for (int g = 0; g < CHUNK / 32; ++g) {
-            unsigned mask = 0u;
-            for (int b = 0; b < 32; ++b) {
-                const int j = g * 32 + b;
-                if (j < j_lo || j >= j_hi) continue;
-                const float dx = tw.px - s_p[0][j];
-                const float v = s_p[1][j];
-                const float ca = s_p[2][j], cb = s_p[3][j], cc = s_p[4][j];
-                const float opa = s_p[6][j];
-                bool reach = false;
-#pragma unroll
-                for (int p = 0; p < PX_PER_THREAD; ++p) {
-                    if (!(t[p] > T_EPS)) continue;
-                    const float alpha =
-                        tile_alpha(dx, py[p] - v, ca, cb, cc, opa);
-                    if (alpha == 0.0f) continue;
-                    reach = true;
-                    t[p] = t[p] * (1.0f - alpha);
-                }
-                if (reach) mask |= 1u << b;
-            }
-            mask = __reduce_or_sync(0xffffffffu, mask);
-            if (lane == 0) s_or[warp][g] = mask;
-        }
-        __syncthreads();
-        if (tid < CHUNK && tid >= j_lo && tid < j_hi) {
-            unsigned any = 0u;
-#pragma unroll
-            for (int w = 0; w < N_RAST_WARPS; ++w) any |= s_or[w][tid >> 5];
-            contrib[col0 + tid] = ((any >> (tid & 31)) & 1u) ? 1.0f : 0.0f;
-        }
-    }
-    if (tid == 0) chunks_done[tw.tile] = c;
-}
-
 }  // namespace gsl
 
 extern "C" int gsl_fused_fwd(const void* meta, const void* cam,
@@ -542,8 +486,8 @@ extern "C" int gsl_fused_fwd(const void* meta, const void* cam,
     if (n_tiles <= 0) return 0;
     const int wp = n_tx * gsl::TILE_W;
     const long long plane = (long long)n_ty * gsl::TILE_H * wp;
-    gsl::fused_fwd_kernel<<<n_tiles, gsl::RAST_THREADS, 0,
-                            (cudaStream_t)stream>>>(
+    gsl::fused_walk_kernel<false><<<n_tiles, gsl::RAST_THREADS, 0,
+                                    (cudaStream_t)stream>>>(
         (const int*)meta, (const float*)cam, (const float*)slot3d,
         (float*)out, (int*)chunks_done, n_tx, m_pad, plane, wp, near_p,
         far_p);
@@ -583,9 +527,9 @@ extern "C" int gsl_fused_probe(const void* meta, const void* cam,
                                void* stream) {
     const int n_tiles = n_ty * n_tx;
     if (n_tiles <= 0) return 0;
-    gsl::fused_probe_kernel<<<n_tiles, gsl::RAST_THREADS, 0,
-                              (cudaStream_t)stream>>>(
+    gsl::fused_walk_kernel<true><<<n_tiles, gsl::RAST_THREADS, 0,
+                                   (cudaStream_t)stream>>>(
         (const int*)meta, (const float*)cam, (const float*)slot3d,
-        (float*)contrib, (int*)chunks_done, n_tx, m_pad, near_p, far_p);
+        (float*)contrib, (int*)chunks_done, n_tx, m_pad, 0, 0, near_p, far_p);
     return (int)cudaGetLastError();
 }

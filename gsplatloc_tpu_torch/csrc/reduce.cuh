@@ -1,5 +1,5 @@
-// The fixed-order reduction of 12 pose partials shared by the two kernels
-// that end in the pose chain (kcover_step_bwd and subtile_chain): each
+// The fixed-order reduction of 12 pose partials of kcover_step_bwd (whose
+// second pass fused_bwd shares; subtile_chain reduces on its own): each
 // thread's 12 partials are summed warp shuffle -> shared memory -> one
 // 12-vector per block in a (n_blocks, 12) scratch, and a second kernel adds
 // the block rows in a fixed order in double. No float atomics, so a result

@@ -54,12 +54,32 @@
 // written as zero, all 8 rows, as is every slot outside [meta[1],
 // meta[n_seg+1]).
 //
-// subtile_chain — bound: bytes (one read of the 8 moment rows over the
-// walked range and of the 5 record rows of the slots with a nonzero
-// moment; the projection and pose chain per slot are far below the f32
-// rate for those bytes). One thread per slot decodes its origin from row 7,
-// recomputes project_parts and runs pose_chain; the 12 partials go through
-// the fixed-order reduction shared with kcover_step_bwd (reduce.cuh).
+// subtile_chain — bound: bytes (one read of the 7 moment rows over the
+// walked range and of row 7 and the 5 record rows of the slots with a
+// nonzero moment; the projection and pose chain per slot are far below
+// the f32 rate for those bytes). A fixed grid of CHAIN_BLOCKS blocks of 256
+// threads, the same on every card; the walked range [meta[1],
+// meta[n_seg+1]) is read on the device and cut into CHAIN_BLOCKS
+// contiguous shares of whole 256-slot rows (the last shares may be short
+// or empty), so no thread touches a slot outside it. Thread j of block b
+// takes the slots b0 + j, b0 + j + 256, ... of its share in slot order:
+// a slot whose 7 moments are all zero is skipped before its record reads
+// (its partials would be signed zeros); any other decodes its origin from
+// row 7, recomputes project_parts and runs pose_chain into 12 float
+// partials from +0.0f, which the thread adds to its 12 sums in double.
+// Reads run ahead of the chain: the moments two slots ahead, row 7 and
+// the record of the next slot (only if it has a moment) one slot ahead;
+// that and the double sums take ~110 registers, so 2 blocks share an SM
+// (more blocks with fewer registers spilled or kept the sums in shared
+// memory, and measured slower). Reduction order, fixed: per warp a
+// shuffle tree (lane l adds lane l + 16, 8, 4, 2, 1) in double, the 8
+// warps in warp order into the block's row of a (CHAIN_BLOCKS, 12) double
+// scratch; the last block to arrive (an integer ticket after a
+// __threadfence; no float atomics) sums the rows: for scalar j, lane l
+// adds rows l, l + 32, ... in ascending order and a shuffle tree joins the
+// lanes, in double, rounded once to f32. Only the per-slot partials are
+// rounded to f32 (as in the plain version) and the sums add no f32
+// rounding of their own; the result repeats bit for bit.
 #include "reduce.cuh"
 #include "subtile.cuh"
 
@@ -71,6 +91,11 @@ constexpr int ENC_Y = 4096;
 constexpr int N_MOM = 7;             // 6 moments of d_sigma + sum of w*g_d
 constexpr int SUB_CAP_DEP = 128;     // Pending ring entries per warp
 constexpr int SUB_CAP_CNT = 256;     // Pending counters
+// subtile_chain: a fixed grid, whatever the card (2 blocks on each of an
+// H100's 132 SMs), each block a fixed share of the walked range
+constexpr int CHAIN_BLOCKS = 264;
+constexpr int N_CHAIN_WARPS = REDUCE_THREADS / 32;
+constexpr int CHAIN_ROWS_PER_LANE = (CHAIN_BLOCKS + 31) / 32;
 
 __global__ void __launch_bounds__(P_SUB)
 subtile_bwd_kernel(const int* __restrict__ meta,
@@ -259,40 +284,140 @@ __global__ void zero_outside_kernel(const int* __restrict__ meta,
     }
 }
 
-__global__ void __launch_bounds__(REDUCE_THREADS)
+// Moment rows 0-6 of slot i (0 for a slot at or past end).
+__device__ __forceinline__ void load_moments(const float* __restrict__ mom,
+                                             long long m_pad, long long i,
+                                             long long end,
+                                             float mv[N_MOM]) {
+#pragma unroll
+    for (int r = 0; r < N_MOM; ++r)
+        mv[r] = (i < end) ? mom[(long long)r * m_pad + i] : 0.0f;
+}
+
+__device__ __forceinline__ bool any_moment(const float mv[N_MOM]) {
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < N_MOM; ++r) any = any || (mv[r] != 0.0f);
+    return any;
+}
+
+// Row 7 and the 5 record rows of slot i, read only if it has a moment.
+__device__ __forceinline__ void load_record(const float* __restrict__ mom,
+                                            const float* __restrict__ slot3d,
+                                            long long m_pad, long long i,
+                                            bool any, float rv[6]) {
+    rv[0] = any ? mom[7LL * m_pad + i] : 0.0f;
+#pragma unroll
+    for (int r = 0; r < 5; ++r)
+        rv[r + 1] = any ? slot3d[(long long)r * m_pad + i] : 0.0f;
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS, 2)
 subtile_chain_kernel(const float* __restrict__ cam_p,
                      const float* __restrict__ slot3d,
                      const float* __restrict__ mom,
                      const int* __restrict__ meta,
-                     float* __restrict__ scratch, int n_seg,
-                     long long m_pad) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const Cam cam = load_cam(cam_p);
-    float part[12];
+                     double* __restrict__ scratch, int* __restrict__ ticket,
+                     float* __restrict__ out, int n_seg, long long m_pad) {
+    __shared__ Cam s_cam;
+    __shared__ double s_warp[N_CHAIN_WARPS][12];
+    __shared__ bool s_last;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    if (tid == 0) s_cam = load_cam(cam_p);
+    // this block's share of the walked range: whole rows of 256 slots
+    const long long lo = meta[1];
+    const long long hi = meta[n_seg + 1];
+    const long long rows = (hi - lo + REDUCE_THREADS - 1) / REDUCE_THREADS;
+    const long long share =
+        (rows + CHAIN_BLOCKS - 1) / CHAIN_BLOCKS * REDUCE_THREADS;
+    const long long b0 = lo + (long long)blockIdx.x * share;
+    const long long b1 = min(b0 + share, hi);
+    __syncthreads();
+
+    // this thread's slots b0 + tid + 256 k, in slot order, summed in
+    // double. Reads run ahead of the chain: the moments two slots ahead,
+    // the record of the next slot (if it has a moment) one slot ahead.
+    double acc[12];
 #pragma unroll
-    for (int j = 0; j < 12; ++j) part[j] = 0.0f;
-    if (i < m_pad && i >= meta[1] && i < meta[n_seg + 1]) {
-        float mv[N_MOM];
-        bool any = false;
+    for (int j = 0; j < 12; ++j) acc[j] = 0.0;
+    long long i = b0 + tid;
+    float m1[N_MOM], m2[N_MOM], r1[6];
+    load_moments(mom, m_pad, i, b1, m1);
+    load_moments(mom, m_pad, i + REDUCE_THREADS, b1, m2);
+    bool any1 = any_moment(m1);
+    load_record(mom, slot3d, m_pad, i, any1, r1);
+    for (; i < b1; i += REDUCE_THREADS) {
+        float mv[N_MOM], rv[6];
 #pragma unroll
         for (int r = 0; r < N_MOM; ++r) {
-            mv[r] = mom[(long long)r * m_pad + i];
-            any = any || (mv[r] != 0.0f);
+            mv[r] = m1[r];
+            m1[r] = m2[r];
         }
-        if (any) {
-            // decode the sub-tile origin packed in row 7 by subtile_bwd
-            const float enc = mom[7LL * m_pad + i];
-            const float ty = floorf(enc * (1.0f / (float)ENC_Y));
-            const float x0 = (enc - (float)ENC_Y * ty) * (float)SUB_W;
-            const float y0 = ty * (float)SUB_H;
-            const Proj pr = project_parts(
-                slot3d[i], slot3d[m_pad + i], slot3d[2 * m_pad + i],
-                slot3d[3 * m_pad + i], slot3d[4 * m_pad + i], cam);
-            pose_chain(pr, cam, mv[0], mv[1], mv[2], mv[3], mv[4], mv[5],
-                       mv[6], x0, y0, part);
-        }
+#pragma unroll
+        for (int r = 0; r < 6; ++r) rv[r] = r1[r];
+        const bool any = any1;
+        load_moments(mom, m_pad, i + 2 * REDUCE_THREADS, b1, m2);
+        any1 = any_moment(m1);
+        load_record(mom, slot3d, m_pad, i + REDUCE_THREADS, any1, r1);
+        if (!any) continue;  // a zero column adds only signed zeros
+        // decode the sub-tile origin packed in row 7 by subtile_bwd
+        const float ty = floorf(rv[0] * (1.0f / (float)ENC_Y));
+        const float x0 = (rv[0] - (float)ENC_Y * ty) * (float)SUB_W;
+        const float y0 = ty * (float)SUB_H;
+        const Proj pr = project_parts(rv[1], rv[2], rv[3], rv[4], rv[5],
+                                      s_cam);
+        float part[12];
+#pragma unroll
+        for (int j = 0; j < 12; ++j) part[j] = 0.0f;
+        pose_chain(pr, s_cam, mv[0], mv[1], mv[2], mv[3], mv[4], mv[5],
+                   mv[6], x0, y0, part);
+#pragma unroll
+        for (int j = 0; j < 12; ++j) acc[j] = acc[j] + (double)part[j];
     }
-    block_sum12(part, scratch);
+
+    // the block's 256 sums: a fixed shuffle tree per warp, the warps in
+    // order, into the block's scratch row
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+        double v = acc[j];
+#pragma unroll
+        for (int ofs = 16; ofs > 0; ofs >>= 1)
+            v = v + __shfl_down_sync(0xffffffffu, v, ofs);
+        if (lane == 0) s_warp[warp][j] = v;
+    }
+    __syncthreads();
+    if (tid < 12) {
+        double v = 0.0;
+#pragma unroll
+        for (int w = 0; w < N_CHAIN_WARPS; ++w) v = v + s_warp[w][tid];
+        scratch[(long long)blockIdx.x * 12 + tid] = v;
+        __threadfence();  // the row is visible before the ticket is taken
+    }
+    __syncthreads();
+    if (tid == 0)
+        s_last = atomicAdd(ticket, 1) == CHAIN_BLOCKS - 1;
+    __syncthreads();
+    if (!s_last) return;
+
+    // the last block to arrive: scalar j (warp j % 8) sums the blocks' rows
+    // l, l + 32, ... in lane l in ascending order, then a fixed shuffle tree
+    __threadfence();
+    for (int j = warp; j < 12; j += N_CHAIN_WARPS) {
+        double v = 0.0;
+#pragma unroll
+        for (int r = 0; r < CHAIN_ROWS_PER_LANE; ++r) {
+            const int row = lane + 32 * r;
+            if (row < CHAIN_BLOCKS)
+                v = v + __ldcg(scratch + (long long)row * 12 + j);
+        }
+#pragma unroll
+        for (int ofs = 16; ofs > 0; ofs >>= 1)
+            v = v + __shfl_down_sync(0xffffffffu, v, ofs);
+        if (lane == 0) out[j] = (float)v;
+    }
+    if (tid >= 12 && tid < 16) out[tid] = 0.0f;
 }
 
 }  // namespace gsl
@@ -323,18 +448,14 @@ extern "C" int gsl_subtile_bwd(const void* meta, const void* proj8,
 
 extern "C" int gsl_subtile_chain(const void* cam, const void* slot3d,
                                  const void* mom, const void* meta,
-                                 void* scratch, void* out, int n_seg,
-                                 long long m_pad, int n_blocks,
+                                 void* scratch, void* ticket, void* out,
+                                 int n_seg, long long m_pad, int n_blocks,
                                  void* stream) {
-    const long long blocks =
-        (m_pad + gsl::REDUCE_THREADS - 1) / gsl::REDUCE_THREADS;
-    if (blocks != n_blocks) return (int)cudaErrorInvalidValue;
-    gsl::subtile_chain_kernel<<<(unsigned)blocks, gsl::REDUCE_THREADS, 0,
+    if (n_blocks != gsl::CHAIN_BLOCKS) return (int)cudaErrorInvalidValue;
+    gsl::subtile_chain_kernel<<<gsl::CHAIN_BLOCKS, gsl::REDUCE_THREADS, 0,
                                 (cudaStream_t)stream>>>(
         (const float*)cam, (const float*)slot3d, (const float*)mom,
-        (const int*)meta, (float*)scratch, n_seg, m_pad);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    return gsl::launch_sum12((const float*)scratch, (float*)out, n_blocks,
-                             (cudaStream_t)stream);
+        (const int*)meta, (double*)scratch, (int*)ticket, (float*)out, n_seg,
+        m_pad);
+    return (int)cudaGetLastError();
 }

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "gsl_project8": [_P, _P, _P, _L, _F, _F, _P],
     "gsl_subtile_fwd": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
     "gsl_subtile_bwd": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
-    "gsl_subtile_chain": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
+    "gsl_subtile_chain": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P],
     "gsl_rasterize_fwd": [_P, _P, _P, _P, _I, _I, _L, _P],
     "gsl_rasterize_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
     "gsl_fused_fwd": [_P, _P, _P, _P, _P, _I, _I, _L, _F, _F, _P],
@@ -57,6 +57,7 @@ _SIGNATURES = {
 }
 
 REDUCE_THREADS = 256  # block size of the pose-partial reductions (reduce.cuh)
+CHAIN_BLOCKS = 264  # subtile_chain's fixed grid (csrc/subtile_bwd.cu)
 
 _lib = None
 build_seconds = None  # wall time of the build this process made (None: reused)

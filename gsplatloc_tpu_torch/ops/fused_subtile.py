@@ -577,28 +577,32 @@ def subtile_chain(slot3d, mom, cam, meta, n_tx):
     """(1, 16) pose partial row [dR(9), dt(3), 0, 0, 0, 0] from the
     per-slot moments. CUDA tensor: the hand-written kernel
     (csrc/subtile_bwd.cu subtile_chain_kernel, which replaces the Pallas
-    _chain_kernel; bound by bytes — one thread per slot decodes its origin
-    from moment row 7, recomputes the projection and runs the pose chain;
-    the 12 partials are reduced warp -> block -> (n_blocks, 12) scratch ->
-    fixed-order double sum, shared with the K-cover step backward). CPU
-    tensor: the plain version `_chain_xla`."""
+    _chain_kernel; bound by bytes — a fixed grid of kernels.CHAIN_BLOCKS
+    blocks splits the walked range [meta[1], meta[-1]) into contiguous
+    shares; each thread skips its all-zero moment columns, chains the rest
+    (origin from moment row 7, project_parts, pose_chain) into f32 partials
+    and sums them in slot order in double; a shuffle tree per warp, the
+    warps in order, and the last block to arrive sums the blocks' rows in a
+    fixed order in double). CPU tensor: the plain version `_chain_xla`."""
     if not slot3d.is_cuda:
         return _chain_xla(slot3d, mom, cam, meta, n_tx)
     mp = slot3d.shape[1]
+    dev = slot3d.device
     kernels.require(slot3d, "slot3d", (NUM_ISO_ROWS, mp))
-    kernels.require(mom, "mom", (NUM_PROJ_ROWS, mp), device=slot3d.device)
+    kernels.require(mom, "mom", (NUM_PROJ_ROWS, mp), device=dev)
     kernels.require(meta, "meta", (meta.shape[0],), dtype=torch.int32,
-                    device=slot3d.device)
-    kernels.require_cam(cam, slot3d.device)
-    n_blocks = -(-mp // kernels.REDUCE_THREADS)
-    scratch = torch.empty((n_blocks, 12), dtype=F32, device=slot3d.device)
-    out = torch.zeros((1, 16), dtype=F32, device=slot3d.device)
+                    device=dev)
+    kernels.require_cam(cam, dev)
+    scratch = torch.empty((kernels.CHAIN_BLOCKS, 12), dtype=torch.float64,
+                          device=dev)
+    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+    out = torch.empty((1, 16), dtype=F32, device=dev)
     lib = kernels.load()
     err = lib.gsl_subtile_chain(cam.data_ptr(), slot3d.data_ptr(),
                                 mom.data_ptr(), meta.data_ptr(),
-                                scratch.data_ptr(), out.data_ptr(),
-                                meta.shape[0] - 2, mp, n_blocks,
-                                kernels.stream_ptr())
+                                scratch.data_ptr(), ticket.data_ptr(),
+                                out.data_ptr(), meta.shape[0] - 2, mp,
+                                kernels.CHAIN_BLOCKS, kernels.stream_ptr())
     kernels.check(err, "subtile_chain")
     subtile_chain.launches += 1
     return out

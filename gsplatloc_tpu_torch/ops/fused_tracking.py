@@ -388,12 +388,12 @@ def fused_fwd(slot3d, meta, cam, n_ty, n_tx, near, far):
     """Depth + alpha of the slot buffer at the camera `cam` (18,). Returns
     (out (2, n_ty*16, n_tx*128) [depth_acc, alpha], chunks_done (n_tiles,)
     int32). CUDA tensor: the hand-written kernel (csrc/fused_tracking.cu
-    fused_fwd_kernel, which replaces the Pallas _fused_fwd_kernel; bound by
-    bytes — one block per 16x128 tile, 256 threads of 8 pixels; each warp
-    walks the segment on its own, projecting 32 slots at a time, only the
-    slots whose footprint box meets its 32x8 pixels, and stops at the first
-    128-slot chunk boundary with none of them alive; chunks_done is the
-    largest of the warps' stops). CPU tensor: the plain version
+    fused_walk_kernel<false>, which replaces the Pallas _fused_fwd_kernel;
+    bound by bytes — one block per 16x128 tile, 256 threads of 8 pixels;
+    each warp walks the segment on its own, projecting 32 slots at a time,
+    only the slots whose footprint box meets its 32x8 pixels, and stops at
+    the first 128-slot chunk boundary with none of them alive; chunks_done
+    is the largest of the warps' stops). CPU tensor: the plain version
     `_fused_fwd_plain`."""
     if not slot3d.is_cuda:
         return _fused_fwd_plain(slot3d, meta, cam, n_ty, n_tx, near, far)
@@ -587,11 +587,15 @@ def fused_probe(slot3d, meta, cam, n_ty, n_tx, near, far):
     """Run the contribution probe at the camera `cam`. Returns (contrib
     (M_pad,) f32, chunks_done (n_tiles,) int32); columns outside each
     tile's walked coverage are 0. CUDA tensor: the hand-written kernel
-    (csrc/fused_tracking.cu fused_probe_kernel, which replaces the Pallas
-    _fused_probe_kernel; bound by bytes — the forward's walk with a per-slot
-    OR over the tile's pixels by warp reductions, each block writing only
-    its own segment's columns into a zero-filled buffer). CPU tensor: the
-    plain version `_fused_probe_plain`."""
+    (csrc/fused_tracking.cu fused_walk_kernel<true>, which replaces the
+    Pallas _fused_probe_kernel; bound by bytes — fused_fwd's walk without
+    its accumulators: each warp walks the segment on its own, projecting
+    32 slots at a time, only the slots whose footprint box meets its 32x8
+    pixels, stopping at the first 128-slot chunk boundary with none of them
+    alive; per 32 slots the warp ORs its lanes' masks of the slots that
+    reached a pixel, and the lane that staged a reached slot writes 1.0 at
+    its column of the zero-filled buffer; chunks_done is the largest of
+    the warps' stops). CPU tensor: the plain version `_fused_probe_plain`."""
     if not slot3d.is_cuda:
         return _fused_probe_plain(slot3d, meta, cam, n_ty, n_tx, near, far)
     n_tiles = n_ty * n_tx
