@@ -71,9 +71,27 @@ Phases (each raises on failure; nothing carries on on the CPU):
                gate in both packages: K=12 truncates some cover lists of
                that scene); (d) `cli track --dataset Synthetic --kcover 12`
                on 4 frames at 1200x680, exact kNN.
+ 10. fixture — the Replica fixture suite (`--dataset ReplicaFixture`, its
+               frames rendered in worker processes, no files): (a) dense0's
+               pair 0 at 1200x680 prepared as the runner prepares it (exact
+               kNN, PCA frame, the depth target's scene), its two frames
+               rendered while phase 9 runs, and the default path's kernels
+               K1-K4 against their plain versions on it as phase 3 holds
+               them (K3, K4a and K4b bit-equal, 0 gate hits outside the
+               sub-tile boxes); (b) `cli track --dataset ReplicaFixture` in
+               process with the reference runs' config (--num-iters 2000,
+               exact kNN; patience 200, warmup 100, early stop) on room0
+               pairs 0-2, room2 pairs 0-1 (depth noise) and dense0 pairs
+               0-1, launch counters zeroed before and read after each run,
+               each pair printed beside the reference's record
+               (eval/fixture_compare.py); fails if a room's ATE-RMSE is
+               above 3x the reference's over the same pairs, a pair's eT
+               above 0.05 cm, or a pair's clamp count not the reference's.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
+`--phase N` (repeatable) runs phases 1, 2 and the phases named only, and
+then prints neither line.
 """
 
 from __future__ import annotations
@@ -241,7 +259,10 @@ def pose_errors(est_c2w, true_c2w):
 def frame_scene(pair, which, dev):
     """The frozen scene of the pair's `which` ("tar" or "src") frame,
     back-projected and placed in the world with the tar camera (816,000
-    splats at 1200x680)."""
+    splats at 1200x680); a pair that carries its scenes (phase 10's,
+    prepared as the runner prepares it) gives its own."""
+    if "scenes" in pair:
+        return pair["scenes"][which]
     K = torch.as_tensor(pair["K"], device=dev)
     tar_c2w = torch.as_tensor(pair["tar_c2w"], device=dev)
     pts = transform_points(tar_c2w, depth_to_points(
@@ -258,8 +279,10 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
                 max_err=err, kernel_ms=ms, **extra)
 
 
-def check_kernels(pair, dev):
-    """Phase 3: each kernel vs its plain version at the main path's shapes."""
+def check_kernels(pair, dev, path_only=False):
+    """Phase 3: each kernel vs its plain version at the main path's shapes.
+    path_only (phase 10a): only the default path's kernels K1-K4, with
+    K4a held bit-equal too."""
     entries = []
     n_ty, n_tx = -(-H // TILE_H), -(-W // TILE_W)
     K = torch.as_tensor(pair["K"], device=dev)
@@ -276,16 +299,18 @@ def check_kernels(pair, dev):
     p8_p = fs._project8(slot_p, cam, NEAR, FAR)
     torch.cuda.synchronize()
     err = float((p8_k - p8_p).abs().max())
+    p8_equal = torch.equal(p8_k, p8_p)
     log(f"[kernels] project8: M_pad={m_pad} max_abs_err={err:.3e} "
-        f"bit_equal={torch.equal(p8_k, p8_p)}")
-    if not err <= TOL_FWD:
+        f"bit_equal={p8_equal}")
+    if not err <= TOL_FWD or (path_only and not p8_equal):
         raise RuntimeError(f"project8 disagrees with its plain version: {err}")
     ms = time_ms(lambda: fs.project8(slot_p, cam, NEAR, FAR), 50)
     pms = time_ms(lambda: fs._project8(slot_p, cam, NEAR, FAR), 5, warm=1)
     entries.append(kernel_entry(
         "project8", "gsplatloc_tpu_torch/csrc/subtile_fwd.cu",
         "gsplatloc_tpu/ops/fused_subtile.py:655", err, ms, pms,
-        bound((5 + 8) * 4 * m_pad, (OPS_PROJECT + 3) * m_pad)))
+        bound((5 + 8) * 4 * m_pad, (OPS_PROJECT + 3) * m_pad),
+        bit_equal=p8_equal))
 
     out_k, cd_k = fs.subtile_fwd(p8_k, meta_p, n_ty, n_tx)
     stats = {}
@@ -366,8 +391,9 @@ def check_kernels(pair, dev):
         gate_hits=cull["hits"], gate_hits_outside_box=cull["outside"],
         regs=regs, spill_stores=spill_st, spill_loads=spill_ld))
     del kb_p, r_k, r_p
-    entries.append(check_index_select(slot3d, meta, cam, p8, kb_k, n_ty,
-                                      n_tx))
+    if not path_only:
+        entries.append(check_index_select(slot3d, meta, cam, p8, kb_k, n_ty,
+                                          n_tx))
     del p8
     del slot3d
 
@@ -376,10 +402,13 @@ def check_kernels(pair, dev):
     # gradient path is live
     from scipy.spatial.transform import Rotation
 
-    near_c2w = np.eye(4, dtype=np.float32)
-    near_c2w[:3, :3] = Rotation.from_euler(
-        "xyz", [0.06, -0.04, 0.03], degrees=True).as_matrix()
-    near_c2w[:3, 3] = [0.005, -0.004, 0.006]
+    step = pair.get("near_step", 1.0)
+    delta = np.eye(4, dtype=np.float32)
+    delta[:3, :3] = Rotation.from_euler(
+        "xyz", np.multiply([0.06, -0.04, 0.03], step),
+        degrees=True).as_matrix()
+    delta[:3, 3] = np.multiply([0.005, -0.004, 0.006], step)
+    near_c2w = tar_c2w.cpu().numpy() @ delta
     cam_s = cam_vector(invert_se3(torch.as_tensor(near_c2w, device=dev)),
                        K, W, H).contiguous()
     m_out = kb_k.shape[2]
@@ -445,7 +474,8 @@ def check_kernels(pair, dev):
         max_rel_err=rel, regs=regs, spill_stores=spill_st,
         spill_loads=spill_ld))
     del kb_k
-    entries += check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx)
+    if not path_only:
+        entries += check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx)
     return entries
 
 
@@ -1513,7 +1543,141 @@ def run_track_cli(runs):
     return all_counts
 
 
-def main():
+# phase 10b: (room, frames) — the pairs 0..frames-2 of each room
+FIXTURE_RUNS = (("room0", 4), ("room2", 3), ("dense0", 3))
+FIXTURE_ATE_RATIO = 3.0  # a prefix's ATE-RMSE against the reference's
+FIXTURE_MAX_ET = 5e-4  # metres (0.05 cm), any pair
+DEFAULT_PATH = ("kcover_step_fwd", "kcover_step_bwd", "kcover_select_records",
+                "project8", "subtile_fwd")
+
+
+def fixture_pair(parser, dev):
+    """Phase 10a's pair: the fixture's frames 0 and 1 prepared as the
+    runner prepares them (exact kNN, pair assembly with the PCA frame, the
+    tracking scene of frame 0 and the depth target's scene of frame 1), as
+    a phase-3 pair that carries its scenes."""
+    knn_tar, knn_src = parser.knn_for_frame(0), parser.knn_for_frame(1)
+    data = parser.pair_from_frames(parser.frame(0), parser.frame(1), knn_src)
+    tar = scene_from_point_cloud(data.tar_points, data.colors,
+                                 grid_shape=(H, W), knn_sq_dists=knn_tar,
+                                 knn_method="exact", device=dev)
+    src = scene_from_point_cloud(data.src_points, data.pixels.reshape(-1, 3),
+                                 grid_shape=(H, W), knn_sq_dists=knn_src,
+                                 device=dev)
+    # dense0's nearest clutter is ~4x closer than the box room's walls: a
+    # quarter of phase 3's offset moves it about a pixel (a cover that
+    # stale is what the select gate allows)
+    return dict(K=parser.K, tar_c2w=data.tar_c2w, near_step=0.25,
+                scenes={"tar": tar, "src": src})
+
+
+def check_fixture_kernels(parser, dev):
+    """Phase 10a: the default path's kernels K1-K4 on a dense0 pair against
+    their plain versions, as phase 3 holds them on the box room (K3, K4a
+    and K4b bit-equal with every gate hit inside its sub-tile box, K1 and
+    K2 within TOL_FWD / TOL_BWD_REL). Returns {name: entry}."""
+    t0 = time.perf_counter()
+    pair = fixture_pair(parser, dev)
+    log(f"[fixture] dense0 pair 0 prepared in {time.perf_counter() - t0:.1f}"
+        f" s (frames waited for in the worker pool, exact kNN, assembly)")
+    entries = {e["name"]: e for e in check_kernels(pair, dev, path_only=True)}
+    if sorted(entries) != sorted(DEFAULT_PATH):
+        raise RuntimeError(f"phase 10a checked {sorted(entries)}")
+    for name, e in entries.items():
+        log(f"[fixture] dense0 {name}: ms {e['ms']:.4f} bound_ms "
+            f"{e['bound_ms']:.4f} ({e['bound_by']}) max_abs_err "
+            f"{e['max_abs_err']:.3e}")
+    return entries
+
+
+def run_fixture_track(runs=FIXTURE_RUNS):
+    """Phase 10b: `cli track --dataset ReplicaFixture` in process on the
+    first pairs of each room, with the reference runs' configuration
+    (product defaults, --num-iters 2000; patience 200, warmup 100 and
+    early stop are the CLI's), exact kNN; launch counters zeroed before
+    and read after each run; each run held pair by pair against the
+    reference's records (eval/fixture_compare.py). Raises if a room's
+    ATE-RMSE exceeds FIXTURE_ATE_RATIO times the reference's over the same
+    pairs, a pair's eT exceeds FIXTURE_MAX_ET, or a pair's clamp count
+    differs from the reference's. Returns the summed launch counts."""
+    from gsplatloc_tpu_torch import cli
+    from gsplatloc_tpu_torch.eval.fixture_compare import compare
+
+    root = Path(tempfile.mkdtemp(prefix="gsl_fixture_"))
+    total = {}
+    try:
+        for room, frames in runs:
+            argv = ["track", "--dataset", "ReplicaFixture", "--rooms", room,
+                    "--frames", str(frames), "--height", str(H), "--width",
+                    str(W), "--num-iters", "2000", "--knn", "exact",
+                    "--run-dir", str(root), "--quiet"]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            c = compare(root / room, room)
+            _, summary, cfg = _read_run(root / room)
+            p, r = c["port"], c["reference"]
+            log(f"[fixture:{room}] argv {' '.join(argv[1:])}")
+            for j, i in enumerate(c["pairs"]):
+                log(f"[fixture:{room}] pair {i}: port eT "
+                    f"{p['eT'][j] * 100:.5f} cm eR {p['eR'][j]:.5f} deg | "
+                    f"reference eT {r['eT'][j] * 100:.5f} cm eR "
+                    f"{r['eR'][j]:.5f} deg | eT ratio {c['eT_ratio'][j]:.3f}"
+                    f" | steps {p['steps'][j]} / {r['steps'][j]} rebuilds "
+                    f"{p['rebuilds'][j]} / {r['rebuilds'][j]} selects "
+                    f"{p['selects'][j]} / {r['selects'][j]} "
+                    f"clamped_scales {p['clamped_scales'][j]} / "
+                    f"{r['clamped_scales'][j]} slot_overflow "
+                    f"{p['slot_overflow'][j]}")
+            log(f"[fixture:{room}] ATE-RMSE {p['ate_rmse'] * 100:.5f} cm "
+                f"(reference {r['ate_rmse'] * 100:.5f}, ratio "
+                f"{c['ate_ratio']:.3f}) AAE-RMSE {p['aae_rmse']:.5f} deg "
+                f"(reference {r['aae_rmse']:.5f}); median steps "
+                f"{p['median_steps']:.0f} / {r['median_steps']:.0f}")
+            log(f"[fixture:{room}] wall {wall:.2f} s = "
+                f"{wall / len(c['pairs']):.2f} s per pair; stage_s "
+                f"{json.dumps(summary['stage_s'])}")
+            log(f"[fixture:{room}] launches {json.dumps(counts)}")
+            if cfg["knn_method"] != "exact" or cfg["max_steps"] != 2000:
+                raise RuntimeError(f"fixture {room}: config {cfg}")
+            for name in DEFAULT_PATH:
+                if counts[name] < 1:
+                    raise RuntimeError(f"fixture {room} never launched {name}")
+            if counts["kcover_select"]:
+                raise RuntimeError(f"fixture {room} launched the index select")
+            if not all(np.isfinite(p["eT"] + p["eR"])):
+                raise RuntimeError(f"fixture {room}: non-finite eT/eR")
+            if not c["ate_ratio"] <= FIXTURE_ATE_RATIO:
+                raise RuntimeError(
+                    f"fixture {room}: ATE-RMSE {p['ate_rmse']} is "
+                    f"{c['ate_ratio']:.3f}x the reference's {r['ate_rmse']}")
+            if not max(p["eT"]) <= FIXTURE_MAX_ET:
+                raise RuntimeError(f"fixture {room}: a pair's eT above "
+                                   f"{FIXTURE_MAX_ET} m: {p['eT']}")
+            if not c["clamped_equal"]:
+                raise RuntimeError(
+                    f"fixture {room}: clamped_scales {p['clamped_scales']},"
+                    f" the reference's {r['clamped_scales']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                 "GPU (all phases unless --phase is given)")
+    ap.add_argument("--phase", type=int, action="append", choices=range(3, 11),
+                    help="run only this phase (repeatable; phases 1 and 2 "
+                         "always run, the kernels line needs them all)")
+    args = ap.parse_args(argv)
+    phases = set(args.phase or range(3, 11))
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is False")
@@ -1538,98 +1702,146 @@ def main():
 
     # 3. kernels vs plain versions
     pair = make_pair()
-    entries = check_fused_tracking(pair, dev)
-    torch.cuda.empty_cache()
-    entries += check_kernels(pair, dev)
-    torch.cuda.empty_cache()
-    entries += check_rasterize(pair, dev)
-    torch.cuda.empty_cache()
+    entries, counts = [], {}
+    if 3 in phases:
+        entries = check_fused_tracking(pair, dev)
+        torch.cuda.empty_cache()
+        entries += check_kernels(pair, dev)
+        torch.cuda.empty_cache()
+        entries += check_rasterize(pair, dev)
+        torch.cuda.empty_cache()
 
     # 4. main path (K-cover, the product default), twice
-    counts4, _ = tracked_pair(pair, dev, TrackingConfig(max_steps=300), "main")
-    for name in ("kcover_step_fwd", "kcover_step_bwd",
-                 "kcover_select_records", "project8", "subtile_fwd"):
-        if counts4[name] < 1:
-            raise RuntimeError(f"main path never launched {name}")
-    if counts4["kcover_step_fwd"] != counts4["kcover_step_bwd"]:
-        raise RuntimeError("forward and backward step launches differ")
-    if counts4["kcover_select"]:
-        raise RuntimeError("the K=16 path launched the index select")
-    torch.cuda.empty_cache()
+    if 4 in phases:
+        counts4, _ = tracked_pair(pair, dev, TrackingConfig(max_steps=300),
+                                  "main")
+        for name in DEFAULT_PATH:
+            if counts4[name] < 1:
+                raise RuntimeError(f"main path never launched {name}")
+        if counts4["kcover_step_fwd"] != counts4["kcover_step_bwd"]:
+            raise RuntimeError("forward and backward step launches differ")
+        if counts4["kcover_select"]:
+            raise RuntimeError("the K=16 path launched the index select")
+        counts.update(counts4)
+        torch.cuda.empty_cache()
 
     # 5. the sub-tile path (kcover=0), twice
-    counts5, _ = tracked_pair(pair, dev, TrackingConfig(max_steps=300, kcover=0),
-                           "subtile")
-    for name in ("project8", "subtile_fwd", "subtile_bwd", "subtile_chain"):
-        if counts5[name] < 1:
-            raise RuntimeError(f"sub-tile path never launched {name}")
-    # every step renders forward and backward; the forward walk runs once
-    # more for the pair's depth target
-    if not (counts5["subtile_bwd"] == counts5["subtile_chain"]
-            == counts5["subtile_fwd"] - 1 == counts5["project8"] - 1):
-        raise RuntimeError("forward and backward step launches differ: "
-                           f"{counts5}")
-    torch.cuda.empty_cache()
+    if 5 in phases:
+        counts5, _ = tracked_pair(
+            pair, dev, TrackingConfig(max_steps=300, kcover=0), "subtile")
+        for name in ("project8", "subtile_fwd", "subtile_bwd",
+                     "subtile_chain"):
+            if counts5[name] < 1:
+                raise RuntimeError(f"sub-tile path never launched {name}")
+        # every step renders forward and backward; the forward walk runs
+        # once more for the pair's depth target
+        if not (counts5["subtile_bwd"] == counts5["subtile_chain"]
+                == counts5["subtile_fwd"] - 1 == counts5["project8"] - 1):
+            raise RuntimeError("forward and backward step launches differ: "
+                               f"{counts5}")
+        counts.update(subtile_bwd=counts5["subtile_bwd"],
+                      subtile_chain=counts5["subtile_chain"])
+        torch.cuda.empty_cache()
 
     # 6. the track entry point
-    run_track_cli(TRACK_RUNS)
-    torch.cuda.empty_cache()
+    if 6 in phases:
+        run_track_cli(TRACK_RUNS)
+        torch.cuda.empty_cache()
 
     # 7. the general rasterizer
-    from gsplatloc_tpu_torch.ops.parity import general_parity
+    if 7 in phases:
+        from gsplatloc_tpu_torch.ops.parity import general_parity
 
-    t0 = time.perf_counter()
-    par = general_parity(device=dev)
-    log(f"[general] general_parity 64x128 n=300: ok={par['ok']} fwd_err "
-        f"{par['fwd_err']:.3e} a_err {par['a_err']:.3e} grad_rels "
-        f"{json.dumps({k: float(f'{v:.3e}') for k, v in par['grad_rels'].items()})}"
-        f" ({time.perf_counter() - t0:.1f} s)")
-    if not par["ok"]:
-        raise RuntimeError(f"general_parity failed on the card: {par}")
-    counts7, _ = tracked_pair(pair, dev, TrackingConfig(max_steps=300),
-                           "general", backend="pallas")
-    # every step renders forward and backward; the forward runs once more
-    # for the pair's depth target
-    if not (counts7["rasterize_bwd"] >= 1 and counts7["rasterize_fwd"]
-            == counts7["rasterize_bwd"] + 1):
-        raise RuntimeError(f"general path launch counts: {counts7}")
-    others = {k: v for k, v in counts7.items()
-              if k not in ("rasterize_fwd", "rasterize_bwd") and v}
-    if others:
-        raise RuntimeError(f"the general path launched other kernels: "
-                           f"{others}")
-    torch.cuda.empty_cache()
-    run_track_cli(TRACK_RUNS_GENERAL)
-    torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        par = general_parity(device=dev)
+        log(f"[general] general_parity 64x128 n=300: ok={par['ok']} fwd_err "
+            f"{par['fwd_err']:.3e} a_err {par['a_err']:.3e} grad_rels "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in par['grad_rels'].items()})}"
+            f" ({time.perf_counter() - t0:.1f} s)")
+        if not par["ok"]:
+            raise RuntimeError(f"general_parity failed on the card: {par}")
+        counts7, _ = tracked_pair(pair, dev, TrackingConfig(max_steps=300),
+                                  "general", backend="pallas")
+        # every step renders forward and backward; the forward runs once
+        # more for the pair's depth target
+        if not (counts7["rasterize_bwd"] >= 1 and counts7["rasterize_fwd"]
+                == counts7["rasterize_bwd"] + 1):
+            raise RuntimeError(f"general path launch counts: {counts7}")
+        others = {k: v for k, v in counts7.items()
+                  if k not in ("rasterize_fwd", "rasterize_bwd") and v}
+        if others:
+            raise RuntimeError(f"the general path launched other kernels: "
+                               f"{others}")
+        counts.update(rasterize_fwd=counts7["rasterize_fwd"],
+                      rasterize_bwd=counts7["rasterize_bwd"])
+        torch.cuda.empty_cache()
+        run_track_cli(TRACK_RUNS_GENERAL)
+        torch.cuda.empty_cache()
 
     # 8. the full-tile path, without and with compaction
-    counts8 = {}
-    for compact in (False, True):
-        counts8[compact] = fulltile_pair(pair, dev, compact)
+    if 8 in phases:
+        counts8 = {}
+        for compact in (False, True):
+            counts8[compact] = fulltile_pair(pair, dev, compact)
+            torch.cuda.empty_cache()
+        run_sequence_fulltile()
+        counts.update(fused_fwd=counts8[False]["fused_fwd"],
+                      fused_bwd=counts8[False]["fused_bwd"],
+                      fused_probe=counts8[True]["fused_probe"])
         torch.cuda.empty_cache()
-    run_sequence_fulltile()
-    torch.cuda.empty_cache()
+
+    # phase 10a's two dense0 frames render in worker processes from here
+    # on, while phase 9 runs
+    if 10 in phases:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from gsplatloc_tpu_torch.data.parser import Parser
+
+        fixture = Parser("ReplicaFixture", "dense0", backend="subtile",
+                         knn_method="exact", device=dev, frames=2,
+                         height=H, width=W)
+        warm = ThreadPoolExecutor(1)
+        warmed = warm.submit(fixture.frame, 0)  # asks for frame 1 too
 
     # 9. the K-cover path at K=12 (the index route)
-    counts9 = kcover12_pair(pair, dev)
-    torch.cuda.empty_cache()
-    route_times(pair, dev)
-    torch.cuda.empty_cache()
-    parity_gates(dev)
-    torch.cuda.empty_cache()
-    c9 = run_track_cli(TRACK_RUNS_K12)["kcover12"]
-    if not (c9["kcover_select_records"] == 0
-            and c9["kcover_select"] == c9["selects"] + c9["pairs"]):
-        raise RuntimeError(f"track --kcover 12 launch counts: {c9}")
+    if 9 in phases:
+        counts9 = kcover12_pair(pair, dev)
+        torch.cuda.empty_cache()
+        route_times(pair, dev)
+        torch.cuda.empty_cache()
+        parity_gates(dev)
+        torch.cuda.empty_cache()
+        c9 = run_track_cli(TRACK_RUNS_K12)["kcover12"]
+        if not (c9["kcover_select_records"] == 0
+                and c9["kcover_select"] == c9["selects"] + c9["pairs"]):
+            raise RuntimeError(f"track --kcover 12 launch counts: {c9}")
+        counts.update(kcover_select=counts9["kcover_select"])
+        torch.cuda.empty_cache()
 
-    counts = dict(counts4, kcover_select=counts9["kcover_select"],
-                  subtile_bwd=counts5["subtile_bwd"],
-                  subtile_chain=counts5["subtile_chain"],
-                  rasterize_fwd=counts7["rasterize_fwd"],
-                  rasterize_bwd=counts7["rasterize_bwd"],
-                  fused_fwd=counts8[False]["fused_fwd"],
-                  fused_bwd=counts8[False]["fused_bwd"],
-                  fused_probe=counts8[True]["fused_probe"])
+    # 10. the Replica fixture suite's first pairs
+    if 10 in phases:
+        t0 = time.perf_counter()
+        warmed.result()
+        warm.shutdown()
+        log(f"[fixture] dense0 frame 0 waited for {time.perf_counter() - t0:.1f}"
+            f" s after phase 9")
+        dense = check_fixture_kernels(fixture, dev)
+        fixture.dataset.close()
+        del fixture
+        torch.cuda.empty_cache()
+        run_fixture_track()
+        torch.cuda.empty_cache()
+        for e in entries:
+            if e["name"] in dense:
+                d = dense[e["name"]]
+                e["dense0"] = {k: d[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "max_abs_err")}
+
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    if phases != set(range(3, 11)):
+        log(f"phases {sorted(phases)} passed (no kernels line: not every "
+            "phase ran)")
+        return
     for e in entries:
         # launches on the path that runs the kernel: K-cover (phase 4) for
         # K1-K4, K-cover at K=12 (phase 9a) for K8, sub-tile (phase 5) for
@@ -1638,7 +1850,6 @@ def main():
         e["launches"] = counts[e["name"]]
     if len(entries) != 13:
         raise RuntimeError(f"{len(entries)} kernels checked, not 13")
-    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

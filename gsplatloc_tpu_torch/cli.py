@@ -6,6 +6,8 @@ Usage:
   python -m gsplatloc_tpu_torch.cli track --dataset Synthetic --backend pallas
   python -m gsplatloc_tpu_torch.cli track --dataset Replica --rooms room0 \
       --data-root datasets/Replica --num-iters 2000 --run-dir runs/track
+  python -m gsplatloc_tpu_torch.cli track --dataset ReplicaFixture \
+      --rooms room0 dense0 --frames 80 --run-dir runs/fixture
   python -m gsplatloc_tpu_torch.cli tables --res runs/track/res.json \
       --dataset Synthetic
 
@@ -37,6 +39,7 @@ def _room_list(args, all_rooms):
 
 def cmd_track(args):
     from .data.datasets import TUM, Replica
+    from .data.fixtures import ReplicaFixture
     from .eval.logger import write_res_json
     from .eval.metrics import set_random_seed
     from .opt.tracking import TrackingConfig
@@ -53,8 +56,9 @@ def cmd_track(args):
                          coast_after_steps=args.coast_after_steps,
                          select_motion_px=args.select_gate,
                          resort_motion_px=args.resort_gate)
-    all_rooms = (Replica.ROOMS if args.dataset == "Replica"
-                 else TUM.SCENES if args.dataset == "TUM" else [""])
+    all_rooms = {"Replica": Replica.ROOMS, "TUM": TUM.SCENES,
+                 "ReplicaFixture": ReplicaFixture.ROOMS}.get(args.dataset,
+                                                             [""])
     rooms = _room_list(args, all_rooms)
     results = {args.dataset: {}}
     run_root = Path(args.run_dir)
@@ -63,6 +67,9 @@ def cmd_track(args):
         if args.dataset == "Synthetic":
             kwargs = dict(n_frames=args.frames, height=args.height,
                           width=args.width, seed=args.seed)
+        elif args.dataset == "ReplicaFixture":
+            kwargs = dict(frames=args.frames, height=args.height,
+                          width=args.width)
         elif args.data_root:
             kwargs = dict(root=args.data_root)
         runner = SequenceRunner(
@@ -135,7 +142,10 @@ def build_parser():
                    help="where the tracking runs (cpu: the plain PyTorch "
                         "versions of the kernels)")
     t.add_argument("--dataset", default="Synthetic",
-                   choices=["Replica", "TUM", "Synthetic"])
+                   choices=["Replica", "TUM", "Synthetic", "ReplicaFixture"],
+                   help="ReplicaFixture: the generated Replica-format "
+                        "fixture rooms (data/fixtures.py), rendered in "
+                        "memory, no files")
     t.add_argument("--rooms", nargs="*", default=None)
     t.add_argument("--all", action="store_true")
     t.add_argument("--room-range", nargs=2, type=int, default=None,
@@ -182,7 +192,10 @@ def build_parser():
     t.add_argument("--data-root", default=None,
                    help="dataset root override (e.g. a generated "
                         "Replica-format fixture)")
-    t.add_argument("--frames", type=int, default=40)
+    t.add_argument("--frames", type=int, default=40,
+                   help="sequence length of the generated datasets "
+                        "(Synthetic, ReplicaFixture; the reference's "
+                        "fixture suite has 80 frames a room)")
     t.add_argument("--height", type=int, default=680)
     t.add_argument("--width", type=int, default=1200)
     t.add_argument("--quiet", action="store_true")

@@ -32,7 +32,12 @@ class BaseDataset(Sequence):
         self.input_folder = Path(input_folder)
         if not self.input_folder.exists():
             raise FileNotFoundError(f"dataset folder {input_folder} missing")
-        self.cfg = load_camera_cfg(cfg_file)["camera"]
+        self._init_camera(load_camera_cfg(cfg_file)["camera"])
+
+    def _init_camera(self, cfg: dict):
+        """Scale, distortion, crop and intrinsics from a camera config block
+        (the "camera" object of cam_params.json)."""
+        self.cfg = cfg
         self.scale = self.cfg["scale"]
         self.distortion = (
             np.array(self.cfg["distortion"]) if "distortion" in self.cfg else None
@@ -259,11 +264,17 @@ class SyntheticBoxRoom(BaseDataset):
 
 
 def get_dataset(name: str, scene: str, **kwargs):
-    """Factory (reference get_data_set, dataset.py:324-330)."""
+    """Factory (reference get_data_set, dataset.py:324-330), plus the
+    file-less sources "Synthetic" and "ReplicaFixture"."""
     if name == "Replica":
         return Replica(scene, **kwargs)
     if name == "TUM":
         return TUM(scene, **kwargs)
     if name == "Synthetic":
         return SyntheticBoxRoom(**kwargs)
-    raise ValueError("dataset name should be in ['TUM', 'Replica', 'Synthetic']")
+    if name == "ReplicaFixture":
+        from .fixtures import ReplicaFixture
+
+        return ReplicaFixture(scene, **kwargs)
+    raise ValueError("dataset name should be in ['TUM', 'Replica', "
+                     "'Synthetic', 'ReplicaFixture']")

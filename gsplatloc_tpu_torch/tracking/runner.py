@@ -41,6 +41,10 @@ class SequenceResult:
     eR: list = field(default_factory=list)  # degrees, per pair
     losses: list = field(default_factory=list)
     steps: list = field(default_factory=list)
+    rebuilds: list = field(default_factory=list)
+    selects: list = field(default_factory=list)
+    clamped_scales: list = field(default_factory=list)  # clamped_count
+    slot_overflow: list = field(default_factory=list)  # 0 / 1
     poses_est: list = field(default_factory=list)  # (4,4) per pair
     wall_s: float = 0.0
     # cumulative per-stage wall clock (seconds over the whole run):
@@ -66,6 +70,16 @@ class SequenceResult:
     @property
     def pose_steps_per_s(self) -> float:
         return float(np.sum(self.steps) / self.wall_s) if self.wall_s else 0.0
+
+
+def clamped_count(knn_sq_dists) -> int:
+    """The splats the scale-init clamp caps in a frame's scene, from its
+    exact kNN squared distances (N, k): raw scales over float64 against
+    the float32 0.99-quantile times 64 (0 on healthy scenes)."""
+    neigh = knn_sq_dists.numpy()[:, 1:].astype(np.float64)
+    s_raw = np.sqrt(np.mean(neigh**2, axis=-1) + 1e-24)
+    cap = np.quantile(s_raw.astype(np.float32), 0.99) * 64.0
+    return int((s_raw > cap).sum())
 
 
 class SequenceRunner:
@@ -143,10 +157,7 @@ class SequenceRunner:
         # observability of the scale-init robust clamp: the number of
         # splats it caps (0 on healthy scenes)
         if knn_tar is not None:
-            neigh = knn_tar.numpy()[:, 1:].astype(np.float64)
-            s_raw = np.sqrt(np.mean(neigh**2, axis=-1) + 1e-24)
-            cap = np.quantile(s_raw.astype(np.float32), 0.99) * 64.0
-            stages["clamped"] = int((s_raw > cap).sum())
+            stages["clamped"] = clamped_count(knn_tar)
         return tar, src, knn_tar, knn_src, stages
 
     def _prepare_device(self, host):
@@ -200,6 +211,9 @@ class SequenceRunner:
         res.eR.append(eR)
         res.losses.append(best_loss)
         res.steps.append(int(out.steps_run))
+        res.rebuilds.append(int(out.rebuilds))
+        res.selects.append(int(out.selects))
+        res.slot_overflow.append(int(bool(out.slot_overflow)))
         res.poses_est.append(best_c2w)
         self.logger.log(
             i, eT=eT, eR=eR, best_loss=best_loss,
@@ -268,6 +282,7 @@ class SequenceRunner:
                     host = self._prepare_host(i)
                 data, scene, (h, w), stages = self._prepare_device(host)
                 clamped = stages.pop("clamped", 0)
+                res.clamped_scales.append(clamped)
                 if clamped:
                     self.logger.log(i, clamped_scales=int(clamped))
                 for k, v in stages.items():

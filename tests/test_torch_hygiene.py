@@ -89,10 +89,11 @@ def test_import_needs_no_cuda_and_builds_nothing():
         "from gsplatloc_tpu_torch.ops import rasterize, rasterize_tiles\n"
         "from gsplatloc_tpu_torch.ops import rasterize_ref, parity, sh\n"
         "from gsplatloc_tpu_torch.opt import tracking\n"
-        "from gsplatloc_tpu_torch.data import parser\n"
+        "from gsplatloc_tpu_torch.data import parser, fixtures\n"
         "from gsplatloc_tpu_torch import cli, native\n"
         "from gsplatloc_tpu_torch.tracking import runner\n"
         "from gsplatloc_tpu_torch.eval import logger, metrics\n"
+        "from gsplatloc_tpu_torch.eval import fixture_compare\n"
         "from gsplatloc_tpu_torch.utils import checkpoint\n"
         "assert native._lib is None\n"
         "assert not torch.cuda.is_available()\n"
