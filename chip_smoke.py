@@ -87,6 +87,29 @@ Phases (each raises on failure; nothing carries on on the CPU):
                (eval/fixture_compare.py); fails if a room's ATE-RMSE is
                above 3x the reference's over the same pairs, a pair's eT
                above 0.05 cm, or a pair's clamp count not the reference's.
+ 11. tum     — the TUM fixture scenes, read without OpenCV: (a) both
+               folders written by the port (data/tum_fixture.py, SUITE's
+               arguments) into a temporary directory, desk associating the
+               reference's 33 pairs; (b) desk's pair 0 at 624x464 (640x480
+               less the crop) prepared as the runner prepares it, and
+               K1-K4 against their plain versions as in phase 10a, their
+               entries appended to the kernels line with "shape"; (c) `cli
+               track --dataset TUM --backend fused --knn exact` in process
+               on the first 4 pairs of desk and of stress, launch counters
+               zeroed before and read after each run, each pair printed
+               beside the reference's record; fails if a prefix's ATE-RMSE
+               is above 3x the reference's over the same pairs or a desk
+               pair's clamp count is not the reference's (stress, whose
+               arguments are not recorded, is held to the reference's
+               whole-run ATE-RMSE).
+ 12. icp     — the classical baselines: `cli icp --dataset ReplicaFixture
+               --rooms room0 --max-pairs 5` in process (the four
+               point-cloud methods, then HYBRID alone), each pair beside
+               the reference's record; fails if ICP, PLANE_ICP or GICP has
+               a pair's eT more than 1e-6 m off the reference's, a method's
+               ATE-RMSE is above 2x the reference's over the same pairs, or
+               HYBRID's dense odometry did not run on the card (its config
+               names another device, or it allocated under 100 MiB there).
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
@@ -281,10 +304,12 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
 
 def check_kernels(pair, dev, path_only=False):
     """Phase 3: each kernel vs its plain version at the main path's shapes.
-    path_only (phase 10a): only the default path's kernels K1-K4, with
-    K4a held bit-equal too."""
+    path_only (phases 10a, 11b): only the default path's kernels K1-K4,
+    with K4a held bit-equal too. A pair with "hw" is checked at that
+    (height, width), else at 1200x680."""
     entries = []
-    n_ty, n_tx = -(-H // TILE_H), -(-W // TILE_W)
+    h, w = pair.get("hw", (H, W))  # phase 11's TUM pair: 464x624
+    n_ty, n_tx = -(-h // TILE_H), -(-w // TILE_W)
     K = torch.as_tensor(pair["K"], device=dev)
     tar_c2w = torch.as_tensor(pair["tar_c2w"], device=dev)
 
@@ -292,8 +317,8 @@ def check_kernels(pair, dev, path_only=False):
     gt_scene = frame_scene(pair, "src", dev)
     vm = invert_se3(tar_c2w)
     slot_p, meta_p, _ = fs.build_subtile_slot_buffer(
-        gt_scene, vm, K, W, H, NEAR, FAR)
-    cam = cam_vector(vm, K, W, H).contiguous()
+        gt_scene, vm, K, w, h, NEAR, FAR)
+    cam = cam_vector(vm, K, w, h).contiguous()
     m_pad = slot_p.shape[1]
     p8_k = fs.project8(slot_p, cam, NEAR, FAR)
     p8_p = fs._project8(slot_p, cam, NEAR, FAR)
@@ -351,7 +376,7 @@ def check_kernels(pair, dev, path_only=False):
     # --- K3: select at the init pose of the tracking scene
     scene = frame_scene(pair, "tar", dev)
     slot3d, meta, ovf = kc.build_kcover_slot_buffer(
-        scene, vm, K, W, H, NEAR, FAR)
+        scene, vm, K, w, h, NEAR, FAR)
     if bool(ovf):
         raise RuntimeError("slot budget overflow in the kernel check")
     kb_k = kc.select_kcover_records(slot3d, meta, cam, n_ty, n_tx, K_COVER,
@@ -410,7 +435,7 @@ def check_kernels(pair, dev, path_only=False):
     delta[:3, 3] = np.multiply([0.005, -0.004, 0.006], step)
     near_c2w = tar_c2w.cpu().numpy() @ delta
     cam_s = cam_vector(invert_se3(torch.as_tensor(near_c2w, device=dev)),
-                       K, W, H).contiguous()
+                       K, w, h).contiguous()
     m_out = kb_k.shape[2]
     f_k = kc.kcover_step_fwd(kb_k, cam_s, n_ty, n_tx, NEAR, FAR)
     f_p = kc._kcover_step_fwd_plain(kb_k, cam_s, n_ty, n_tx, NEAR, FAR)
@@ -1551,42 +1576,47 @@ DEFAULT_PATH = ("kcover_step_fwd", "kcover_step_bwd", "kcover_select_records",
                 "project8", "subtile_fwd")
 
 
-def fixture_pair(parser, dev):
-    """Phase 10a's pair: the fixture's frames 0 and 1 prepared as the
-    runner prepares them (exact kNN, pair assembly with the PCA frame, the
-    tracking scene of frame 0 and the depth target's scene of frame 1), as
-    a phase-3 pair that carries its scenes."""
+def runner_pair(parser, dev, near_step):
+    """A fixture's frames 0 and 1 prepared as the runner prepares them
+    (exact kNN, pair assembly with the PCA frame, the tracking scene of
+    frame 0 and the depth target's scene of frame 1), as a phase-3 pair
+    that carries its scenes and its image size."""
+    tar_frame = parser.frame(0)
+    hw = tuple(tar_frame.depth.shape)
     knn_tar, knn_src = parser.knn_for_frame(0), parser.knn_for_frame(1)
-    data = parser.pair_from_frames(parser.frame(0), parser.frame(1), knn_src)
+    data = parser.pair_from_frames(tar_frame, parser.frame(1), knn_src)
     tar = scene_from_point_cloud(data.tar_points, data.colors,
-                                 grid_shape=(H, W), knn_sq_dists=knn_tar,
+                                 grid_shape=hw, knn_sq_dists=knn_tar,
                                  knn_method="exact", device=dev)
     src = scene_from_point_cloud(data.src_points, data.pixels.reshape(-1, 3),
-                                 grid_shape=(H, W), knn_sq_dists=knn_src,
+                                 grid_shape=hw, knn_sq_dists=knn_src,
                                  device=dev)
-    # dense0's nearest clutter is ~4x closer than the box room's walls: a
-    # quarter of phase 3's offset moves it about a pixel (a cover that
-    # stale is what the select gate allows)
-    return dict(K=parser.K, tar_c2w=data.tar_c2w, near_step=0.25,
-                scenes={"tar": tar, "src": src})
+    return dict(K=parser.K, tar_c2w=data.tar_c2w, near_step=near_step,
+                scenes={"tar": tar, "src": src}, hw=hw)
 
 
-def check_fixture_kernels(parser, dev):
-    """Phase 10a: the default path's kernels K1-K4 on a dense0 pair against
-    their plain versions, as phase 3 holds them on the box room (K3, K4a
-    and K4b bit-equal with every gate hit inside its sub-tile box, K1 and
-    K2 within TOL_FWD / TOL_BWD_REL). Returns {name: entry}."""
+def check_path_kernels(parser, dev, tag):
+    """Phases 10a and 11b: the default path's kernels K1-K4 on a fixture's
+    pair 0 prepared as the runner prepares it, against their plain
+    versions as phase 3 holds them on the box room (K3, K4a and K4b
+    bit-equal with every gate hit inside its sub-tile box, K1 and K2
+    within TOL_FWD / TOL_BWD_REL). Returns {name: entry}."""
     t0 = time.perf_counter()
-    pair = fixture_pair(parser, dev)
-    log(f"[fixture] dense0 pair 0 prepared in {time.perf_counter() - t0:.1f}"
-        f" s (frames waited for in the worker pool, exact kNN, assembly)")
+    # the fixtures' nearest clutter stands several times closer than the
+    # box room's walls (dense0 ~4x): a quarter of phase 3's offset moves
+    # it about a pixel (a cover that stale is what the select gate allows)
+    pair = runner_pair(parser, dev, near_step=0.25)
+    h, w = pair["hw"]
+    log(f"[{tag}] pair 0 prepared in {time.perf_counter() - t0:.1f} s "
+        f"({w}x{h}; frames waited for, exact kNN, assembly)")
     entries = {e["name"]: e for e in check_kernels(pair, dev, path_only=True)}
     if sorted(entries) != sorted(DEFAULT_PATH):
-        raise RuntimeError(f"phase 10a checked {sorted(entries)}")
+        raise RuntimeError(f"{tag}: checked {sorted(entries)}")
     for name, e in entries.items():
-        log(f"[fixture] dense0 {name}: ms {e['ms']:.4f} bound_ms "
-            f"{e['bound_ms']:.4f} ({e['bound_by']}) max_abs_err "
-            f"{e['max_abs_err']:.3e}")
+        e["shape"] = f"{w}x{h}"
+        log(f"[{tag}] {w}x{h} {name}: ms {e['ms']:.4f} bound_ms "
+            f"{e['bound_ms']:.4f} ({e['bound_by']}) plain_ms "
+            f"{e['plain_ms']:.3f} max_abs_err {e['max_abs_err']:.3e}")
     return entries
 
 
@@ -1668,16 +1698,196 @@ def run_fixture_track(runs=FIXTURE_RUNS):
     return total
 
 
+# phase 11: the TUM fixture scenes, written by the port at the suite's
+# arguments (data/tum_fixture.py); (scene, pairs of the prefix tracked)
+TUM_RUNS = (("freiburg1_desk", 4), ("freiburg2_stress", 4))
+TUM_PAIRS = {"freiburg1_desk": 33}  # the reference's pairs, where reproduced
+
+
+def write_tum_scenes(root):
+    """Phase 11a: both TUM fixture scenes written by the port (no OpenCV)
+    at the suite's arguments; desk must associate the reference's pairs."""
+    from gsplatloc_tpu_torch.data.datasets import TUM
+    from gsplatloc_tpu_torch.data.tum_fixture import SUITE, write_tum_fixture
+
+    out = {}
+    for scene, kw in SUITE.items():
+        t0 = time.perf_counter()
+        write_tum_fixture(root, scene=scene, **kw)
+        out[scene] = len(TUM(scene, root=root))
+        log(f"[tum] wrote {scene} ({json.dumps(kw)}) in "
+            f"{time.perf_counter() - t0:.1f} s: {out[scene]} frames "
+            f"associated, {out[scene] - 1} pairs")
+    for scene, n_pairs in TUM_PAIRS.items():
+        if out[scene] - 1 != n_pairs:
+            raise RuntimeError(f"tum {scene}: {out[scene] - 1} pairs "
+                               f"associated, the reference's {n_pairs}")
+
+
+def run_tum_track(root):
+    """Phase 11c: `cli track --dataset TUM` in process on a prefix of each
+    scene with the reference runs' configuration (product defaults,
+    --backend fused; exact kNN as they ran), launch counters zeroed
+    before and read after each run, each pair printed beside the
+    reference's record. Raises if a prefix's ATE-RMSE exceeds
+    FIXTURE_ATE_RATIO times the reference's over the same pairs, or a
+    pair's clamp count differs from the reference's; a scene whose
+    per-pair record the writer does not reproduce (stress) is held to the
+    reference's whole-run ATE-RMSE. Returns the summed launch counts."""
+    from gsplatloc_tpu_torch import cli
+    from gsplatloc_tpu_torch.data.tum_fixture import PER_PAIR
+    from gsplatloc_tpu_torch.eval.fixture_compare import (
+        compare, compare_class,
+    )
+
+    runs = Path(tempfile.mkdtemp(prefix="gsl_tum_runs_"))
+    total = {}
+    try:
+        for scene, n_pairs in TUM_RUNS:
+            argv = ["track", "--dataset", "TUM", "--data-root", str(root),
+                    "--rooms", scene, "--backend", "fused", "--knn", "exact",
+                    "--max-pairs", str(n_pairs), "--run-dir", str(runs),
+                    "--quiet"]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            _, summary, cfg = _read_run(runs / scene)
+            log(f"[tum:{scene}] argv {' '.join(argv[1:])}")
+            if scene in PER_PAIR:
+                c = compare(runs / scene, scene)
+                p, r = c["port"], c["reference"]
+                for j, i in enumerate(c["pairs"]):
+                    log(f"[tum:{scene}] pair {i}: port eT "
+                        f"{p['eT'][j] * 100:.5f} cm eR {p['eR'][j]:.5f} deg"
+                        f" | reference eT {r['eT'][j] * 100:.5f} cm eR "
+                        f"{r['eR'][j]:.5f} deg | eT ratio "
+                        f"{c['eT_ratio'][j]:.3f} | steps {p['steps'][j]} / "
+                        f"{r['steps'][j]} clamped_scales "
+                        f"{p['clamped_scales'][j]} / "
+                        f"{r['clamped_scales'][j]}")
+                if not c["clamped_equal"]:
+                    raise RuntimeError(
+                        f"tum {scene}: clamped_scales {p['clamped_scales']}, "
+                        f"the reference's {r['clamped_scales']}")
+            else:
+                c = compare_class(runs / scene, scene)
+                p, r = c["port"], c["reference"]
+                log(f"[tum:{scene}] per pair eT cm "
+                    f"{[round(x * 100, 5) for x in p['eT']]} steps "
+                    f"{p['steps']}; held to the reference's whole run "
+                    f"({len(r['eT'])} pairs): its arguments are not "
+                    f"reconstructed")
+            ratio = c["ate_ratio"]
+            log(f"[tum:{scene}] ATE-RMSE {p['ate_rmse'] * 100:.5f} cm "
+                f"(reference {r['ate_rmse'] * 100:.5f}, ratio {ratio:.3f}) "
+                f"AAE-RMSE {p['aae_rmse']:.5f} deg; wall {wall:.2f} s = "
+                f"{wall / n_pairs:.2f} s per pair; stage_s "
+                f"{json.dumps(summary['stage_s'])}")
+            log(f"[tum:{scene}] launches {json.dumps(counts)}")
+            if cfg["knn_method"] != "exact" or cfg["dataset"] != "TUM":
+                raise RuntimeError(f"tum {scene}: config {cfg}")
+            for name in DEFAULT_PATH:
+                if counts[name] < 1:
+                    raise RuntimeError(f"tum {scene} never launched {name}")
+            if not all(np.isfinite(p["eT"] + p["eR"])):
+                raise RuntimeError(f"tum {scene}: non-finite eT/eR")
+            if not ratio <= FIXTURE_ATE_RATIO:
+                raise RuntimeError(f"tum {scene}: ATE-RMSE {p['ate_rmse']} "
+                                   f"is {ratio:.3f}x the reference's")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    return total
+
+
+# phase 12: `cli icp` on room0's first ICP_FRAMES frames
+ICP_METHODS = ("ICP", "PLANE_ICP", "GICP", "COLORED_ICP", "HYBRID")
+ICP_FRAMES = 5
+ICP_SAME_DEPTH = ("ICP", "PLANE_ICP", "GICP")  # see the reference's depth
+ICP_ET_TOL = 1e-6  # metres, |eT - the reference's| per pair, those three
+ICP_ATE_RATIO = 2.0
+
+
+def run_icp_cli():
+    """Phase 12: `cli icp --dataset ReplicaFixture --rooms room0` with the
+    five methods on the first ICP_FRAMES frames, in process (the command
+    of the reference's records but for --max-pairs), each pair beside the
+    reference's record. Raises if ICP, PLANE_ICP or GICP has a pair's eT
+    off the reference's by more than ICP_ET_TOL, a method's ATE-RMSE is
+    above ICP_ATE_RATIO times the reference's over the same pairs, or
+    HYBRID did not run on the card."""
+    from gsplatloc_tpu_torch import cli
+    from gsplatloc_tpu_torch.eval.fixture_compare import compare_icp
+
+    runs = Path(tempfile.mkdtemp(prefix="gsl_icp_"))
+    try:
+        common = ["--dataset", "ReplicaFixture", "--rooms", "room0",
+                  "--max-pairs", str(ICP_FRAMES), "--run-dir", str(runs)]
+        # the point-cloud methods first, then HYBRID alone, so that the
+        # device memory it allocates is measured around its own run
+        t0 = time.perf_counter()
+        cli.main(["icp", "--methods", *ICP_METHODS[:-1], *common])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cli.main(["icp", "--methods", "HYBRID", *common])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hybrid_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        log(f"[icp] {' '.join(common)} --methods {' '.join(ICP_METHODS)}:"
+            f" {wall:.1f} s; HYBRID's own device peak {hybrid_mib:.0f} MiB")
+        for method in ICP_METHODS:
+            run = runs / f"room0_{method}"
+            c = compare_icp(run, "room0", method)
+            p, r = c["port"], c["reference"]
+            recs = [json.loads(x) for x in
+                    (run / "metrics.jsonl").read_text().splitlines()]
+            cfg = json.loads((run / "config.json").read_text())
+            diffs = [abs(a - b) for a, b in zip(p["eT"], r["eT"])]
+            log(f"[icp:{method}] eT cm port "
+                f"{[round(x * 100, 5) for x in p['eT']]} reference "
+                f"{[round(x * 100, 5) for x in r['eT']]} max |diff| "
+                f"{max(diffs) * 100:.2e} cm; ATE-RMSE "
+                f"{p['ate_rmse'] * 100:.5f} cm (reference "
+                f"{r['ate_rmse'] * 100:.5f}, ratio {c['ate_ratio']:.4f}) "
+                f"AAE-RMSE {p['aae_rmse']:.5f} deg (reference "
+                f"{r['aae_rmse']:.5f}); {recs[-1]['ts'] - recs[0]['ts']:.1f}"
+                f" s from the first pair's record; device {cfg['device']}")
+            if len(c["pairs"]) != ICP_FRAMES - 1:
+                raise RuntimeError(f"icp {method}: {len(c['pairs'])} pairs")
+            if not all(np.isfinite(p["eT"] + p["eR"])):
+                raise RuntimeError(f"icp {method}: non-finite eT/eR")
+            if method in ICP_SAME_DEPTH and not max(diffs) <= ICP_ET_TOL:
+                raise RuntimeError(f"icp {method}: a pair's eT is "
+                                   f"{max(diffs)} m off the reference's")
+            if not c["ate_ratio"] <= ICP_ATE_RATIO:
+                raise RuntimeError(f"icp {method}: ATE-RMSE ratio "
+                                   f"{c['ate_ratio']:.3f}")
+            if method == "HYBRID" and not cfg["device"].startswith("cuda"):
+                raise RuntimeError(f"icp HYBRID ran on {cfg['device']}")
+        # the dense odometry's (H, W, 6) Jacobians at 1200x680 are ~20 MiB
+        # each, and HYBRID back-projects no cloud
+        if not hybrid_mib >= 100:
+            raise RuntimeError(f"icp: HYBRID allocated {hybrid_mib:.0f} MiB "
+                               "on the card; its odometry did not run there")
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                  "GPU (all phases unless --phase is given)")
-    ap.add_argument("--phase", type=int, action="append", choices=range(3, 11),
+    ap.add_argument("--phase", type=int, action="append", choices=range(3, 13),
                     help="run only this phase (repeatable; phases 1 and 2 "
                          "always run, the kernels line needs them all)")
     args = ap.parse_args(argv)
-    phases = set(args.phase or range(3, 11))
+    phases = set(args.phase or range(3, 13))
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is False")
@@ -1825,7 +2035,7 @@ def main(argv=None):
         warm.shutdown()
         log(f"[fixture] dense0 frame 0 waited for {time.perf_counter() - t0:.1f}"
             f" s after phase 9")
-        dense = check_fixture_kernels(fixture, dev)
+        dense = check_path_kernels(fixture, dev, "fixture dense0")
         fixture.dataset.close()
         del fixture
         torch.cuda.empty_cache()
@@ -1837,8 +2047,38 @@ def main(argv=None):
                 e["dense0"] = {k: d[k] for k in ("ms", "plain_ms", "bound_ms",
                                                  "bound_by", "max_abs_err")}
 
+    # 11. the TUM fixture scenes, written and read without OpenCV
+    tum_entries = []
+    if 11 in phases:
+        t0 = time.perf_counter()
+        tum_root = Path(tempfile.mkdtemp(prefix="gsl_tum_"))
+        try:
+            write_tum_scenes(tum_root)
+            from gsplatloc_tpu_torch.data.parser import Parser
+
+            desk = Parser("TUM", "freiburg1_desk", backend="subtile",
+                          knn_method="exact", device=dev, root=tum_root)
+            tum_entries = list(check_path_kernels(desk, dev,
+                                                  "tum desk").values())
+            del desk
+            torch.cuda.empty_cache()
+            counts11 = run_tum_track(tum_root)
+        finally:
+            shutil.rmtree(tum_root, ignore_errors=True)
+        for e in tum_entries:
+            e["launches"] = counts11[e["name"]]
+        torch.cuda.empty_cache()
+        log(f"[tum] phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # 12. the classical baselines
+    if 12 in phases:
+        t0 = time.perf_counter()
+        run_icp_cli()
+        torch.cuda.empty_cache()
+        log(f"[icp] phase 12: {time.perf_counter() - t0:.1f} s")
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(3, 11)):
+    if phases != set(range(3, 13)):
         log(f"phases {sorted(phases)} passed (no kernels line: not every "
             "phase ran)")
         return
@@ -1850,6 +2090,9 @@ def main(argv=None):
         e["launches"] = counts[e["name"]]
     if len(entries) != 13:
         raise RuntimeError(f"{len(entries)} kernels checked, not 13")
+    # the default path's kernels again at the TUM shape, their launches
+    # from phase 11c's runs
+    entries += tum_entries
     log(smi_line())
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -8,12 +8,20 @@ Usage:
       --data-root datasets/Replica --num-iters 2000 --run-dir runs/track
   python -m gsplatloc_tpu_torch.cli track --dataset ReplicaFixture \
       --rooms room0 dense0 --frames 80 --run-dir runs/fixture
+  python -m gsplatloc_tpu_torch.cli track --dataset TUM \
+      --data-root datasets/TUM_fixture --rooms freiburg1_desk
+  python -m gsplatloc_tpu_torch.cli icp --dataset ReplicaFixture \
+      --rooms room0 --methods ICP PLANE_ICP GICP COLORED_ICP HYBRID \
+      --max-pairs 40
   python -m gsplatloc_tpu_torch.cli tables --res runs/track/res.json \
       --dataset Synthetic
 
 `track` runs on the CUDA device unless `--device cpu` is given (the plain
 PyTorch versions of the kernels; slow beyond small images) and writes one
-run directory per room plus `res.json` under --run-dir.
+run directory per room plus `res.json` under --run-dir. `icp` runs the
+classical baselines (tracking/icp.py): the registrations on the host, the
+back-projection and HYBRID's dense odometry on the device; one run
+directory per room and method plus the resume ledger `finished.jsonl`.
 """
 
 from __future__ import annotations
@@ -120,9 +128,43 @@ def cmd_tables(args):
 
 
 def cmd_icp(args):
-    raise NotImplementedError(
-        "icp: the classical baselines (tracking/icp.py, tracking/odometry.py) "
-        "are not ported yet (ROADMAP item 15)")
+    from .data.datasets import TUM, Replica, SyntheticBoxRoom
+    from .data.fixtures import ReplicaFixture
+    from .tracking.icp import run_icp_sweep
+
+    if args.dataset == "Replica":
+        rooms = _room_list(args, Replica.ROOMS)
+
+        def factory(scene):
+            return Replica(scene, root=args.data_root or "datasets/Replica")
+    elif args.dataset == "TUM":
+        rooms = _room_list(args, TUM.SCENES)
+
+        def factory(scene):
+            return TUM(scene, root=args.data_root or "datasets/TUM")
+    elif args.dataset == "ReplicaFixture":
+        rooms = _room_list(args, ReplicaFixture.ROOMS)
+
+        def factory(scene):
+            # the fixture suite's rooms: 80 frames at 1200x680 unless asked
+            return ReplicaFixture(scene, frames=args.frames or 80,
+                                  height=args.height or 680,
+                                  width=args.width or 1200)
+    else:
+        rooms = ["synthetic"]
+
+        def factory(scene):
+            return SyntheticBoxRoom(n_frames=args.frames or 40,
+                                    height=args.height or 240,
+                                    width=args.width or 320)
+
+    res = run_icp_sweep(
+        factory, rooms, methods=args.methods, run_root=args.run_dir,
+        max_images=args.max_pairs, device=args.device,
+    )
+    for (scene, method), out in res.items():
+        print(f"{scene}/{method}: ATE-RMSE {out['ate_rmse']*100:.5f} cm  "
+              f"AAE-RMSE {out['aae_rmse']:.5f} deg")
 
 
 def cmd_render(args):
@@ -211,20 +253,45 @@ def build_parser():
     tb.add_argument("--dataset", default="Replica")
     tb.set_defaults(fn=cmd_tables)
 
-    # the reference's other two subcommands: not ported yet, they raise
-    # (whatever flags they are given)
-    for name, fn, what in (("icp", cmd_icp, "classical ICP baseline sweep"),
-                           ("render", cmd_render,
-                            "novel-view fly-through renders")):
-        sub.add_parser(name, help=f"{what} (not ported yet)").set_defaults(
-            fn=fn)
+    i = sub.add_parser("icp", help="classical ICP baseline sweep")
+    i.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the clouds are back-projected and HYBRID's "
+                        "dense odometry runs (the registrations run on the "
+                        "host)")
+    i.add_argument("--dataset", default="Synthetic",
+                   choices=["Replica", "TUM", "Synthetic", "ReplicaFixture"],
+                   help="ReplicaFixture: the generated Replica-format "
+                        "fixture rooms (data/fixtures.py), rendered in "
+                        "memory, no files")
+    i.add_argument("--rooms", nargs="*", default=None)
+    i.add_argument("--all", action="store_true")
+    i.add_argument("--methods", nargs="*",
+                   default=["ICP", "PLANE_ICP", "GICP"],
+                   help="ICP, PLANE_ICP, GICP, COLORED_ICP, HYBRID")
+    i.add_argument("--max-pairs", type=int, default=2000,
+                   help="frames read per sequence (the reference's name)")
+    i.add_argument("--run-dir", default="runs/icp_sweep")
+    i.add_argument("--data-root", default=None)
+    i.add_argument("--frames", type=int, default=None,
+                   help="sequence length of the generated datasets "
+                        "(Synthetic 40, ReplicaFixture 80)")
+    i.add_argument("--height", type=int, default=None,
+                   help="Synthetic 240, ReplicaFixture 680")
+    i.add_argument("--width", type=int, default=None,
+                   help="Synthetic 320, ReplicaFixture 1200")
+    i.set_defaults(fn=cmd_icp)
+
+    # the reference's last subcommand: not ported yet, it raises (whatever
+    # flags it is given)
+    sub.add_parser("render", help="novel-view fly-through renders (not "
+                   "ported yet)").set_defaults(fn=cmd_render)
     return ap
 
 
 def main(argv=None):
     ap = build_parser()
     args, extra = ap.parse_known_args(argv)
-    if extra and args.fn not in (cmd_icp, cmd_render):
+    if extra and args.fn is not cmd_render:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
     args.fn(args)
 

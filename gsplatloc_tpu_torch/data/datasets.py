@@ -5,7 +5,9 @@ Behavioral parity with reference src/data/dataset.py:
     poses from traj.txt (4x4 per row), natural-sorted frame*/depth* files.
   * TUM (:164-321): timestamp association of rgb/depth/groundtruth within
     max_dt=0.08, frame-rate subsampling, quaternion poses, first pose
-    normalized to identity, undistortion + edge crop.
+    normalized to identity, undistortion + edge crop. PNGs are decoded by
+    `png.py` and colour undistorted by `undistort.py` (numpy, no OpenCV).
+  * Replica decodes its JPEG colour with OpenCV.
 Also a Synthetic box-room dataset so the full pipeline runs with no data on
 disk (the reference has no such thing; tests/benches need it).
 """
@@ -17,7 +19,9 @@ from typing import Sequence
 
 import numpy as np
 
+from . import png
 from .base import RGBDFrame, as_intrinsics_matrix, load_camera_cfg, natsorted
+from .undistort import undistort
 
 
 class DatasetIndexError(IndexError, ValueError):
@@ -209,14 +213,14 @@ class TUM(BaseDataset):
         return pose
 
     def _get_one(self, index: int) -> RGBDFrame:
-        import cv2
-
-        bgr = cv2.imread(str(self._color_paths[index]), cv2.IMREAD_COLOR)
+        bgr = png.imread(self._color_paths[index])
+        if bgr.ndim == 2:  # IMREAD_COLOR's grey -> BGR
+            bgr = np.repeat(bgr[..., None], 3, axis=-1)
+        bgr = bgr[..., :3]  # and its alpha drop
         if self.distortion is not None:
-            bgr = cv2.undistort(bgr, self.K_raw, self.distortion)
-        rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB).astype(np.float64)
-        depth = cv2.imread(str(self._depth_paths[index]), cv2.IMREAD_UNCHANGED)
-        depth = depth.astype(np.float32)
+            bgr = undistort(bgr, self.K_raw, self.distortion)
+        rgb = bgr[..., ::-1].astype(np.float64)
+        depth = png.imread(self._depth_paths[index]).astype(np.float32)
         ce = self.crop_edge
         if ce > 0:
             rgb = rgb[ce:-ce, ce:-ce]

@@ -11,18 +11,10 @@
 
 #include <cmath>
 #include <cstdint>
-#include <vector>
 
-#include "kdtree.h"
-
-using gsl::KdTree;
+#include "capi.h"
 
 extern "C" {
-
-struct GsKdTree {
-  std::vector<double> pts;  // owned copy
-  KdTree tree;
-};
 
 GsKdTree* gs_kdtree_build(const double* points, int64_t n) {
   auto* t = new GsKdTree();

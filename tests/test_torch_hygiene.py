@@ -66,15 +66,43 @@ def test_package_layout_mirrors_the_reference():
         "subtile_fwd.cu"]
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cuh")) == [
         "project.cuh", "rasterize.cuh", "reduce.cuh", "subtile.cuh"]
-    # the port builds its own copy of the kNN sources, never the reference's
+    # the port builds its own copy of the native sources, never the
+    # reference's
     assert sorted(p.name for p in (PKG / "native" / "src").iterdir()) == [
-        "kdtree.h", "knn_capi.cc"]
+        "capi.h", "icp_capi.cc", "kdtree.h", "knn_capi.cc",
+        "registration.cc", "registration.h"]
+    for rel in ("tracking/icp.py", "tracking/odometry.py",
+                "native/src/registration.h", "native/src/registration.cc"):
+        assert (PKG / rel).exists(), rel
+        assert (ROOT / "gsplatloc_tpu" / rel).exists(), rel
     from gsplatloc_tpu_torch import native
 
     assert native._SRC == PKG / "native" / "src"
     assert native.library_path().parent == PKG / "_build"
     assert "-ffp-contract=off" in native.CXX_FLAGS
     assert not any("march" in f for f in native.CXX_FLAGS)
+
+
+# the TUM and `cli icp` paths: the card's machine has no OpenCV (Replica's
+# JPEG decode in data/datasets.py keeps it, test below)
+NO_OPENCV = ("data/png.py", "data/undistort.py",
+             "data/tum_fixture.py", "data/fixtures.py",
+             "data/fixture_worker.py", "data/synthetic.py", "data/parser.py",
+             "tracking/icp.py", "tracking/odometry.py", "tracking/runner.py",
+             "native/__init__.py", "cli.py")
+
+
+@pytest.mark.parametrize("rel", NO_OPENCV)
+def test_tum_and_icp_paths_import_no_opencv(rel):
+    assert "cv2" not in set(_imported_roots(PKG / rel)), rel
+
+
+def test_only_replica_decodes_with_opencv():
+    tree = ast.parse((PKG / "data" / "datasets.py").read_text())
+    users = {cls.name for cls in tree.body if isinstance(cls, ast.ClassDef)
+             for node in ast.walk(cls) if isinstance(node, ast.Import)
+             and any(a.name == "cv2" for a in node.names)}
+    assert users == {"Replica"}
 
 
 def test_import_needs_no_cuda_and_builds_nothing():
@@ -89,7 +117,9 @@ def test_import_needs_no_cuda_and_builds_nothing():
         "from gsplatloc_tpu_torch.ops import rasterize, rasterize_tiles\n"
         "from gsplatloc_tpu_torch.ops import rasterize_ref, parity, sh\n"
         "from gsplatloc_tpu_torch.opt import tracking\n"
-        "from gsplatloc_tpu_torch.data import parser, fixtures\n"
+        "from gsplatloc_tpu_torch.data import parser, fixtures, tum_fixture\n"
+        "from gsplatloc_tpu_torch.data import datasets, png, undistort\n"
+        "from gsplatloc_tpu_torch.tracking import icp, odometry\n"
         "from gsplatloc_tpu_torch import cli, native\n"
         "from gsplatloc_tpu_torch.tracking import runner\n"
         "from gsplatloc_tpu_torch.eval import logger, metrics\n"
@@ -104,6 +134,7 @@ def test_import_needs_no_cuda_and_builds_nothing():
         "m.startswith('gsplatloc_tpu.') or m == 'gsplatloc_tpu' "
         "for m in sys.modules)\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'cv2' not in sys.modules\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),

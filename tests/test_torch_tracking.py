@@ -205,7 +205,6 @@ def _unported(name, pair):
     return {
         "pallas": pallas_mesh,
         "fulltile_mesh": fulltile_mesh,
-        "cli_icp": lambda: cli.main(["icp", "--dataset", "Synthetic"]),
         "cli_render": lambda: cli.main(["render", "--dataset", "Synthetic"]),
         "subtile_false": opt,
         "panel_every": lambda: SequenceRunner(
@@ -214,12 +213,11 @@ def _unported(name, pair):
     }[name]
 
 
-@pytest.mark.parametrize("name", ["pallas", "fulltile_mesh", "cli_icp",
-                                  "cli_render", "panel_every"])
+@pytest.mark.parametrize("name", ["pallas", "fulltile_mesh", "cli_render",
+                                  "panel_every"])
 def test_unported_paths_raise(pair, name):
     """The multi-device mesh of the general and the full-tile renders, the
-    baselines, the render fly-through and the runner's panels are later
-    slices."""
+    render fly-through and the runner's panels are later slices."""
     with pytest.raises(NotImplementedError, match="not ported|ported"):
         _unported(name, pair)()
 
