@@ -110,11 +110,30 @@ Phases (each raises on failure; nothing carries on on the CPU):
                ATE-RMSE is above 2x the reference's over the same pairs, or
                HYBRID's dense odometry did not run on the card (its config
                names another device, or it allocated under 100 MiB there).
+ 13. render  — `cli render` on the card (novel views through K6a): (a)
+               `cli render --dataset Synthetic --path spline --n-views 24`
+               at 1200x680 in process, launch counters zeroed before and
+               read after (K6a once a view, nothing else), its time_block
+               timers (frames and path, scene, view, panel), the view's
+               device parts timed apart (projection + SH + pack_slots,
+               K6a) and the peak device memory of the command's own run
+               (above what was allocated before it); one panel decoded must be
+               (680, 2400, 3) and lit; (b) K6a on the path's middle view,
+               between keyframes, bit-equal to its plain version with 0
+               gate hits outside the footprint boxes, timed, its entry
+               appended to the kernels line with "shape"; (d) the live
+               viewer on a free local port: its /render PNG equal to a
+               direct render of its camera; (e) psnr, ssim and lpips
+               (random weights, seed 0) of the keyframe view against its
+               frame; (f) profile_trace around one view must name K6a's
+               kernel; (c) the same command at 320x240 (the JAX package's
+               defaults), every view within 1e-3 of the JAX package's
+               record (eval/render_reference.json, render_compare.py).
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
-`--phase N` (repeatable) runs phases 1, 2 and the phases named only, and
-then prints neither line.
+`--phase N` (repeatable; 3-13) runs phases 1, 2 and the phases named
+only, and then prints neither line.
 """
 
 from __future__ import annotations
@@ -885,34 +904,14 @@ def ptxas_usage(kernel):
     return regs, spill_st, spill_ld
 
 
-def check_rasterize(pair, dev):
-    """K6a / K6b at the general path's full shapes: the tracking scene
-    (816,000 isotropic splats) projected at the initial pose, its SH
-    colours evaluated, binned by bin_and_sort (inverse permutation kept)
-    and gathered into the (16, M_pad) slot buffer; the backward's depth and
-    alpha cotangents from the tracking loss of that render against the src
-    frame's depth, its r/g/b cotangents from a numpy seed (the tracking
-    loss gives them zero) so that rows 7-9 are exercised."""
-    from gsplatloc_tpu_torch.losses import tracking_loss
-    from gsplatloc_tpu_torch.ops.projection import project_gaussians
-    from gsplatloc_tpu_torch.ops.rasterize import _view_dirs
-    from gsplatloc_tpu_torch.ops.sh import eval_sh
-
-    entries = []
-    K = torch.as_tensor(pair["K"], device=dev)
-    vm = invert_se3(torch.as_tensor(pair["tar_c2w"], device=dev))
-    scene = frame_scene(pair, "tar", dev)
-    with torch.no_grad():
-        proj = project_gaussians(scene.means, scene.quats, scene.scales, vm,
-                                 K, W, H)
-        colors = eval_sh(1, scene.sh_coeffs, _view_dirs(scene.means, vm))
-        packed, meta, b = rt.pack_slots(
-            proj.mean2d, proj.conic, proj.depth, scene.opacities, colors,
-            proj.valid, proj.radius, W, H)
-    del scene, proj, colors
+def check_raster_fwd(packed, meta, b, tag, where, **extra):
+    """K6a on one slot buffer against its plain version on the card:
+    bit-equal, chunks_done equal, every gate hit inside its slot's
+    footprint box; its time with CUDA events and its bound (the walked
+    slots' records, the five planes, the pairs inside the footprints).
+    Returns the kernels-line entry and what the backward check reuses."""
     n_ty, n_tx = b.n_tiles_y, b.n_tiles_x
     m_pad = packed.shape[1]
-
     out_k, cd_k = rt.rasterize_fwd(packed, meta, n_ty, n_tx)
     stats = {}
     torch.cuda.synchronize()
@@ -926,13 +925,13 @@ def check_rasterize(pair, dev):
     cd_equal = torch.equal(cd_k, cd_p)
     walked = walked_slots(meta, cd_k)
     needed = footprint_pairs(packed, meta, cd_k, n_tx)
-    log(f"[kernels] rasterize_fwd: M={b.num_pairs} M_pad={m_pad} tiles="
+    log(f"[kernels] {tag}: M={b.num_pairs} M_pad={m_pad} tiles="
         f"{n_ty}x{n_tx} walked_slots={walked} walked_pairs={stats['pairs']} "
         f"footprint_pairs={needed} hits={stats['hits']} max_abs_err="
         f"{err:.3e} bit_equal={bit_equal} chunks_done_equal={cd_equal} "
-        f"(full size, no crop)")
+        f"{where}")
     if not (bit_equal and cd_equal):
-        raise RuntimeError("rasterize_fwd disagrees with its plain version: "
+        raise RuntimeError(f"{tag} disagrees with its plain version: "
                            f"err={err} chunks_done_equal={cd_equal}")
     if needed < stats["hits"]:
         raise RuntimeError(f"footprint count {needed} below the gate hits "
@@ -941,9 +940,9 @@ def check_rasterize(pair, dev):
     # K6a and K6b walk the same chunks with the same boxes
     cull = box_check(packed, meta, cd_k, n_tx)
     regs, spill_st, spill_ld = ptxas_usage("rasterize_fwd_kernel")
-    log_cull("rasterize_fwd", cull, needed, walked, regs, spill_st, spill_ld)
+    log_cull(tag, cull, needed, walked, regs, spill_st, spill_ld)
     ms = time_ms(lambda: rt.rasterize_fwd(packed, meta, n_ty, n_tx), 20)
-    entries.append(kernel_entry(
+    entry = kernel_entry(
         "rasterize_fwd", "gsplatloc_tpu_torch/csrc/rasterize_fwd.cu",
         "gsplatloc_tpu/ops/rasterize_pallas.py:387", err, ms, pms,
         bound(walked * rt.N_FIELDS * 4 + out_k.numel() * 4
@@ -952,7 +951,35 @@ def check_rasterize(pair, dev):
         walked_slots=walked, walked_pairs=stats["pairs"],
         footprint_pairs=needed, hits=stats["hits"],
         box_pairs=cull["box_pairs"], gate_hits_outside_box=cull["outside"],
-        regs=regs, spill_stores=spill_st, spill_loads=spill_ld))
+        regs=regs, spill_stores=spill_st, spill_loads=spill_ld, **extra)
+    log(f"[kernels] {tag}: {ms:.4f} ms (CUDA events, 20 launches), bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), plain "
+        f"{pms:.1f} ms")
+    return dict(entry=entry, out=out_k, chunks_done=cd_k, cull=cull,
+                needed=needed, walked=walked, stats=stats)
+
+
+def check_rasterize(pair, dev):
+    """K6a / K6b at the general path's full shapes: the tracking scene
+    (816,000 isotropic splats) projected at the initial pose, its SH
+    colours evaluated, binned by bin_and_sort (inverse permutation kept)
+    and gathered into the (16, M_pad) slot buffer; the backward's depth and
+    alpha cotangents from the tracking loss of that render against the src
+    frame's depth, its r/g/b cotangents from a numpy seed (the tracking
+    loss gives them zero) so that rows 7-9 are exercised."""
+    from gsplatloc_tpu_torch.losses import tracking_loss
+
+    entries = []
+    K = torch.as_tensor(pair["K"], device=dev)
+    scene = frame_scene(pair, "tar", dev)
+    packed, meta, b = pack_view(scene, K, pair["tar_c2w"], dev)
+    del scene
+    n_ty, n_tx = b.n_tiles_y, b.n_tiles_x
+    fwd = check_raster_fwd(packed, meta, b, "rasterize_fwd",
+                           "(full size, no crop)")
+    entries.append(fwd["entry"])
+    out_k, cd_k, cull = fwd["out"], fwd["chunks_done"], fwd["cull"]
+    needed, walked, stats = fwd["needed"], fwd["walked"], fwd["stats"]
 
     # cotangents of the five images
     d_acc = out_k[3].clone().requires_grad_(True)
@@ -1878,16 +1905,277 @@ def run_icp_cli():
         shutil.rmtree(runs, ignore_errors=True)
 
 
+# phase 13: `cli render` — at full width, and at the JAX package's defaults
+# beside its record (eval/render_reference.json)
+RENDER_ARGV = ["render", "--device", "cuda", "--dataset", "Synthetic",
+               "--path", "spline", "--n-views", "24"]
+RENDER_FULL = ["--width", str(W), "--height", str(H)]
+RENDER_DEFAULTS = ["--width", "320", "--height", "240"]
+VIEWER_WH = (640, 360)
+
+
+def render_cli(argv, out, on_view=None):
+    """`cli render` in process into `out`, the launch counters zeroed just
+    before and read just after; on_view(render, alpha) sees every view as
+    the command rendered it. Returns (views written, counts, wall s)."""
+    from gsplatloc_tpu_torch import cli
+
+    view = cli.render_view
+
+    def watched(*a, **k):
+        render, alpha = view(*a, **k)
+        on_view(render, alpha)
+        return render, alpha
+
+    if on_view is not None:
+        cli.render_view = watched
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(argv + ["--out", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        cli.render_view = view
+    n = len(list(Path(out).glob("view_*.png")))
+    log(f"[render] argv {' '.join(argv[1:])}: {n} views in {wall:.2f} s; "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    others = {k: v for k, v in counts.items() if k != "rasterize_fwd" and v}
+    if counts["rasterize_fwd"] != n or others or n < 2:
+        raise RuntimeError(f"render: {n} views, launches {counts}")
+    return n, counts, wall
+
+
+def pack_view(scene, K, c2w, dev):
+    """Projection, SH colours and pack_slots of one view, as rasterize
+    runs them: (packed, meta, binning)."""
+    from gsplatloc_tpu_torch.ops.projection import project_gaussians
+    from gsplatloc_tpu_torch.ops.rasterize import _view_dirs
+    from gsplatloc_tpu_torch.ops.sh import eval_sh
+
+    vm = invert_se3(torch.as_tensor(np.asarray(c2w, np.float32), device=dev))
+    with torch.no_grad():
+        proj = project_gaussians(scene.means, scene.quats, scene.scales, vm,
+                                 K, W, H)
+        colors = eval_sh(1, scene.sh_coeffs, _view_dirs(scene.means, vm))
+        return rt.pack_slots(proj.mean2d, proj.conic, proj.depth,
+                             scene.opacities, colors, proj.valid,
+                             proj.radius, W, H)
+
+
+def render_split(scene, K, path, dev):
+    """Per view of the path, the render's two device parts timed apart
+    with time_block: projection + SH + pack_slots, and K6a."""
+    from gsplatloc_tpu_torch.utils import profiling
+
+    for c2w in path:
+        with profiling.time_block("split/pack") as tb:
+            packed, meta, b = tb.watch(pack_view(scene, K, c2w, dev))
+        with profiling.time_block("split/k6a") as tb:
+            tb.watch(rt.rasterize_fwd(packed, meta, b.n_tiles_y,
+                                      b.n_tiles_x))
+    return {k: profiling.timer_stats(f"split/{k}") for k in ("pack", "k6a")}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_viewer(scene, K, dev):
+    """Phase 13d: the live viewer on the card over the full-width scene;
+    its /render PNG against a direct render of its camera."""
+    import urllib.request
+
+    from gsplatloc_tpu_torch.data.png import decode
+    from gsplatloc_tpu_torch.eval.viewer import LiveViewer
+    from gsplatloc_tpu_torch.ops.rasterize import rasterize
+
+    vw, vh = VIEWER_WH
+    viewer = LiveViewer(K, vw, vh, port=free_port(), backend="pallas",
+                        device=dev).start()
+    base = f"http://127.0.0.1:{viewer.port}"
+    query = "tx=0&ty=0&tz=-1&rx=0&ry=0"
+    try:
+        viewer.set_scene(scene)
+        viewer.update(step=1, rays_per_sec=0.0)
+        page = urllib.request.urlopen(base + "/", timeout=60).read()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        resp = urllib.request.urlopen(f"{base}/render?{query}", timeout=300)
+        body = resp.read()
+        secs = time.perf_counter() - t0
+        launches = kernels.launch_counts()["rasterize_fwd"]
+        stats = json.loads(urllib.request.urlopen(base + "/stats",
+                                                  timeout=60).read())
+    finally:
+        viewer.stop()
+    served = decode(body)[..., ::-1]
+    c2w, Kv = viewer.camera({k: [v] for k, v in
+                             (kv.split("=") for kv in query.split("&"))})
+    with torch.no_grad():
+        render, _ = rasterize(
+            scene.means, scene.quats, scene.scales, scene.opacities,
+            scene.sh_coeffs, invert_se3(torch.as_tensor(c2w, device=dev)),
+            torch.as_tensor(Kv, device=dev), vw, vh, sh_degree=1,
+            render_mode="RGB+ED", backend="pallas")
+    direct = (np.clip(render[..., :3].cpu().numpy(), 0, 1) * 255).astype(
+        np.uint8)
+    equal = np.array_equal(served, direct)
+    log(f"[render] viewer {vw}x{vh}: / {len(page)} bytes, /render "
+        f"{resp.headers['Content-Type']} {len(body)} bytes in {secs:.3f} s "
+        f"(K6a launches {launches}), /stats {json.dumps(stats)}; PNG equal "
+        f"to a direct render: {equal}, lit pixels "
+        f"{int((direct.max(-1) > 0).sum())}")
+    if not (equal and resp.headers["Content-Type"] == "image/png"
+            and launches == 1 and b"<img" in page and direct.max() > 0
+            and stats["step"] == 1):
+        raise RuntimeError("viewer: its frame is not the direct render "
+                           f"(equal {equal}, launches {launches})")
+
+
+def check_metrics(scene, K, frame, dev):
+    """Phase 13e: psnr, ssim and lpips (random parameters, seed 0) between
+    the render at the scene's own keyframe pose and that frame's RGB."""
+    from gsplatloc_tpu_torch import cli
+    from gsplatloc_tpu_torch.eval.lpips import lpips, random_lpips_params
+    from gsplatloc_tpu_torch.ops.filters import psnr, ssim
+
+    render, _ = cli.render_view(scene, K, frame.c2w, W, H)
+    rgb = render[..., :3].clamp(0, 1)
+    gt = torch.as_tensor(frame.rgb, dtype=torch.float32, device=dev) / 255.0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        vals = {"psnr": float(psnr(rgb, gt)), "ssim": float(ssim(rgb, gt)),
+                "lpips": float(lpips(rgb, gt, random_lpips_params(0, dev)))}
+        secs = time.perf_counter() - t0
+    log(f"[render] keyframe view against its frame's RGB ({W}x{H}): "
+        f"{json.dumps(vals)} ({secs:.2f} s)")
+    if not all(np.isfinite(v) for v in vals.values()) or vals["psnr"] < 10:
+        raise RuntimeError(f"render metrics: {vals}")
+
+
+def check_trace(scene, K, c2w, dev):
+    """Phase 13f: profile_trace around one full-width view; the trace must
+    name K6a's kernel."""
+    from gsplatloc_tpu_torch import cli
+    from gsplatloc_tpu_torch.utils.profiling import TRACE_FILE, profile_trace
+
+    root = Path(tempfile.mkdtemp(prefix="gsl_trace_"))
+    try:
+        with profile_trace(root, device=dev):
+            cli.render_view(scene, K, c2w, W, H)
+        events = json.loads((root / TRACE_FILE).read_text())["traceEvents"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    device_ops = sorted((e for e in events if e.get("cat") == "kernel"
+                         or e.get("cat") == "gpu_memcpy"),
+                        key=lambda e: -e.get("dur", 0))
+    k6a = [e for e in device_ops if "rasterize_fwd_kernel" in e["name"]]
+    top = [(e["name"][:60], round(e.get("dur", 0) / 1e3, 3))
+           for e in device_ops[:3]]
+    log(f"[render] trace of one view: {len(device_ops)} device operations, "
+        f"K6a {len(k6a)} ({sum(e.get('dur', 0) for e in k6a) / 1e3:.3f} ms), "
+        f"longest three (name, ms): {top}")
+    if not k6a:
+        raise RuntimeError("the trace names no rasterize_fwd_kernel")
+
+
+def run_render(dev):
+    """Phase 13: `cli render` on the card. Returns K6a's novel-view entry
+    for the kernels line."""
+    from gsplatloc_tpu_torch import cli
+    from gsplatloc_tpu_torch.data.png import imread
+    from gsplatloc_tpu_torch.eval import render_compare
+    from gsplatloc_tpu_torch.utils import profiling
+
+    root = Path(tempfile.mkdtemp(prefix="gsl_render_"))
+    try:
+        # (a) full width
+        argv = RENDER_ARGV + RENDER_FULL
+        profiling.reset_timers()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n, counts, wall = render_cli(argv, root / "full")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        split = {k: profiling.timer_stats(f"render/{k}")
+                 for k in ("data", "scene", "view", "panel")}
+        panel = imread(root / "full" / f"view_{n // 2:04d}.png")
+        lit = float((panel.max(-1) > 0).mean())
+        log(f"[render] (a) {W}x{H}: {n} views, wall {wall:.2f} s "
+            f"({wall / n * 1e3:.1f} ms a view), peak device memory of its run "
+            f"{peak:.0f} MiB; time_block ms: " + "; ".join(
+                f"{k} {v['mean_s'] * 1e3:.2f} mean, {v['min_s'] * 1e3:.2f} "
+                f"min x {v['count']}" for k, v in split.items()))
+        log(f"[render] (a) panel {n // 2}: shape {panel.shape}, lit share "
+            f"{lit:.4f}, mean {float(panel.mean()):.2f}")
+        if panel.shape != (H, 2 * W, 3) or lit < 0.5 or panel.std() < 5:
+            raise RuntimeError(f"render: panel {panel.shape}, lit {lit}")
+        args = cli.build_parser().parse_args(argv + ["--out", str(root)])
+        frame, path = cli.flythrough_path(args)
+        scene, K = cli.frame_scene(frame, dev)
+        profiling.reset_timers()
+        parts = render_split(scene, K, path, dev)
+        log(f"[render] (a) the view's device parts, time_block ms over "
+            f"{n} views (mean / min): projection + SH + pack_slots "
+            f"{parts['pack']['mean_s'] * 1e3:.2f} / "
+            f"{parts['pack']['min_s'] * 1e3:.2f}, K6a "
+            f"{parts['k6a']['mean_s'] * 1e3:.3f} / "
+            f"{parts['k6a']['min_s'] * 1e3:.3f}")
+        torch.cuda.empty_cache()
+
+        # (b) K6a on the middle view, between keyframes
+        mid = n // 2
+        packed, meta, b = pack_view(scene, K, path[mid], dev)
+        fwd = check_raster_fwd(packed, meta, b, "rasterize_fwd novel view",
+                               f"(path view {mid} of {n}, {W}x{H})",
+                               shape=f"{W}x{H} novel view")
+        entry = fwd["entry"]
+        entry["launches"] = counts["rasterize_fwd"]
+        del packed, meta, b, fwd
+        torch.cuda.empty_cache()
+
+        # (d) the viewer, (e) the metrics, (f) a trace, on the same scene
+        check_viewer(scene, K, dev)
+        check_metrics(scene, K, frame, dev)
+        check_trace(scene, K, path[mid], dev)
+        del scene
+        torch.cuda.empty_cache()
+
+        # (c) the JAX package's defaults, held against its record
+        summaries = []
+        render_cli(RENDER_ARGV + RENDER_DEFAULTS, root / "defaults",
+                   on_view=lambda r, a: summaries.append(
+                       render_compare.summarize(r.cpu().numpy(),
+                                                a.cpu().numpy())))
+        res = render_compare.compare(render_compare.load_reference(),
+                                     summaries)
+        log(f"[render] (c) 320x240 against the JAX package's record: "
+            f"{res['views']} views, largest difference per channel "
+            f"(ED relative) {json.dumps(res.get('max_diff'))} at "
+            f"{json.dumps(res.get('where'))}; gate {render_compare.TOL}: "
+            f"ok={res['ok']}")
+        if not res["ok"]:
+            raise RuntimeError(f"render against the record: {res}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return entry
+
+
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                  "GPU (all phases unless --phase is given)")
-    ap.add_argument("--phase", type=int, action="append", choices=range(3, 13),
+    ap.add_argument("--phase", type=int, action="append", choices=range(3, 14),
                     help="run only this phase (repeatable; phases 1 and 2 "
                          "always run, the kernels line needs them all)")
     args = ap.parse_args(argv)
-    phases = set(args.phase or range(3, 13))
+    phases = set(args.phase or range(3, 14))
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is False")
@@ -2077,8 +2365,16 @@ def main(argv=None):
         torch.cuda.empty_cache()
         log(f"[icp] phase 12: {time.perf_counter() - t0:.1f} s")
 
+    # 13. `cli render`: novel views through K6a
+    render_entries = []
+    if 13 in phases:
+        t0 = time.perf_counter()
+        render_entries = [run_render(dev)]
+        torch.cuda.empty_cache()
+        log(f"[render] phase 13: {time.perf_counter() - t0:.1f} s")
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(3, 13)):
+    if phases != set(range(3, 14)):
         log(f"phases {sorted(phases)} passed (no kernels line: not every "
             "phase ran)")
         return
@@ -2093,6 +2389,8 @@ def main(argv=None):
     # the default path's kernels again at the TUM shape, their launches
     # from phase 11c's runs
     entries += tum_entries
+    # K6a on phase 13's novel view, its launches from 13a's run
+    entries += render_entries
     log(smi_line())
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -15,6 +15,8 @@ Usage:
       --max-pairs 40
   python -m gsplatloc_tpu_torch.cli tables --res runs/track/res.json \
       --dataset Synthetic
+  python -m gsplatloc_tpu_torch.cli render --dataset Synthetic \
+      --width 1200 --height 680 --n-views 24 --out runs/render
 
 `track` runs on the CUDA device unless `--device cpu` is given (the plain
 PyTorch versions of the kernels; slow beyond small images) and writes one
@@ -22,6 +24,9 @@ run directory per room plus `res.json` under --run-dir. `icp` runs the
 classical baselines (tracking/icp.py): the registrations on the host, the
 back-projection and HYBRID's dense odometry on the device; one run
 directory per room and method plus the resume ledger `finished.jsonl`.
+`render` builds a frozen scene from one frame and writes one
+[RGB | depth colormap] PNG panel per view of a camera path, rendered by
+the general rasterizer (on the card unless `--device cpu`).
 """
 
 from __future__ import annotations
@@ -167,12 +172,126 @@ def cmd_icp(args):
               f"AAE-RMSE {out['aae_rmse']:.5f} deg")
 
 
+def flythrough_path(args):
+    """The frame a fly-through's scene is built from and its camera path:
+    the dataset's poses in a window of up to 16 frames from --frame (moved
+    back when --frame is near the end: the path generators need two poses;
+    a one-frame dataset gets a second pose 5 cm off), through the --path
+    generator. Returns (frame, path (n_views, 4, 4) float64)."""
+    import numpy as np
+
+    from .data import traj
+    from .data.datasets import get_dataset
+
+    kwargs = {}
+    if args.dataset == "Synthetic":
+        kwargs = dict(n_frames=max(args.frame + 8, 12), height=args.height,
+                      width=args.width)
+    elif args.data_root:
+        kwargs = dict(root=args.data_root)
+    ds = get_dataset(args.dataset, args.scene, **kwargs)
+    frame = ds[args.frame]
+    ctx_end = min(len(ds), args.frame + 16)
+    ctx_start = args.frame if ctx_end - args.frame >= 2 else max(
+        0, ctx_end - 2)
+    poses = np.stack([np.asarray(ds[i].c2w)
+                      for i in range(ctx_start, ctx_end)])
+    if poses.shape[0] < 2:
+        p2 = poses[0].copy()
+        p2[:3, 3] += 0.05
+        poses = np.stack([poses[0], p2])
+    if args.path == "ellipse_z":
+        path = traj.generate_ellipse_path_z(poses, n_frames=args.n_views)
+    elif args.path == "ellipse_y":
+        path = traj.generate_ellipse_path_y(poses, n_frames=args.n_views)
+    else:
+        # keeps the keyframes' orientation: looking at the next path point
+        # is degenerate for near-static (tracking-style) trajectories
+        path = traj.generate_interpolated_path(
+            poses, max(args.n_views // max(len(poses) - 1, 1), 1),
+            look_at_neighbor=False,
+        )
+    return frame, path
+
+
+def frame_scene(frame, device):
+    """The frozen scene of one RGB-D frame on `device`: its depth
+    back-projected and placed in the world, grid-window kNN scales.
+    Returns (scene, K)."""
+    from ._device import as_f32
+    from .models.gaussians import scene_from_point_cloud
+    from .ops.camera import depth_to_points
+    from .ops.lie import transform_points
+
+    h, w = frame.hw
+    K = as_f32(frame.K, device)
+    pts_cam = depth_to_points(as_f32(frame.depth, device), K)
+    pts = transform_points(as_f32(frame.c2w, device), pts_cam)
+    rgbs = as_f32(frame.rgb.reshape(-1, 3), device) / 255.0
+    scene = scene_from_point_cloud(pts, rgbs, grid_shape=(h, w),
+                                   device=device)
+    return scene, K
+
+
+def render_view(scene, K, c2w, width, height, backend="pallas"):
+    """RGB+ED render of the scene at a camera-to-world pose (a (3, 4) or
+    (4, 4) array), SH degree 1. Returns (render (H, W, 4), alpha (H, W))."""
+    import numpy as np
+    import torch
+
+    from ._device import as_f32
+    from .ops.lie import invert_se3
+    from .ops.rasterize import rasterize
+
+    c2w4 = np.eye(4, dtype=np.float32)
+    c2w4[: c2w.shape[0]] = c2w
+    with torch.no_grad():
+        return rasterize(
+            scene.means, scene.quats, scene.scales, scene.opacities,
+            scene.sh_coeffs, invert_se3(as_f32(c2w4, K.device)), K, width,
+            height, sh_degree=1, render_mode="RGB+ED", backend=backend,
+        )
+
+
+def render_panel(render):
+    """(H, W, 4) RGB+ED render (numpy) -> the (H, 2W, 3) uint8 RGB panel
+    [clipped RGB | depth colormap]."""
+    import numpy as np
+
+    from .eval.visualize import depth_to_colormap
+
+    rgb = np.clip(render[..., :3], 0, 1)
+    return np.concatenate(
+        [(rgb * 255).astype(np.uint8), depth_to_colormap(render[..., 3])],
+        axis=1)
+
+
 def cmd_render(args):
-    raise NotImplementedError(
-        "render: the novel-view fly-through is not ported yet (ROADMAP "
-        "item 16, with eval/visualize.py and data/traj.py): its only output "
-        "is PNG panels drawn with matplotlib, which the port does not "
-        "depend on")
+    """Novel-view fly-through: a frozen scene built from one RGB-D frame,
+    rendered RGB+ED along a camera path through the dataset's poses, one
+    [RGB | depth colormap] PNG panel per view. Timers (utils/profiling):
+    render/data (frames and path), render/scene, render/view (the render on
+    the device), render/panel (read back, colormap, PNG encode)."""
+    from ._device import resolve_device
+    from .data.png import imwrite
+    from .utils.profiling import time_block
+
+    dev = resolve_device(args.device)
+    with time_block("render/data"):
+        frame, path = flythrough_path(args)
+    with time_block("render/scene") as tb:
+        scene, K = tb.watch(frame_scene(frame, dev))
+    h, w = frame.hw
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, c2w in enumerate(path):
+        with time_block("render/view") as tb:
+            render, _alpha = tb.watch(
+                render_view(scene, K, c2w, w, h, args.backend))
+        with time_block("render/panel"):
+            panel = render_panel(render.cpu().numpy())
+            imwrite(out_dir / f"view_{i:04d}.png", panel[..., ::-1])  # BGR
+    print(f"wrote {len(path)} views to {out_dir}")
 
 
 def build_parser():
@@ -223,11 +342,12 @@ def build_parser():
                         "KdTree (raises if it cannot be built), grid = the "
                         "pixel-window approximation on the device")
     t.add_argument("--panel-every", type=int, default=0,
-                   help="RGBD comparison panel every N pairs (not ported: "
-                        "> 0 raises)")
+                   help="write an RGBD comparison panel every N pairs "
+                        "(0 = off; needs matplotlib)")
     t.add_argument("--pcd-every", type=int, default=0,
-                   help="3D point-cloud inspection PNG every N pairs (not "
-                        "ported: > 0 raises)")
+                   help="write a 3D point-cloud inspection PNG (pair "
+                        "cloud + camera frusta) every N pairs (0 = off; "
+                        "needs matplotlib)")
     t.add_argument("--no-prefetch", action="store_true",
                    help="strictly serial loop, no host prefetch worker")
     t.add_argument("--run-dir", default="runs/track")
@@ -281,18 +401,36 @@ def build_parser():
                    help="Synthetic 320, ReplicaFixture 1200")
     i.set_defaults(fn=cmd_icp)
 
-    # the reference's last subcommand: not ported yet, it raises (whatever
-    # flags it is given)
-    sub.add_parser("render", help="novel-view fly-through renders (not "
-                   "ported yet)").set_defaults(fn=cmd_render)
+    r = sub.add_parser("render", help="novel-view fly-through renders")
+    r.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the scene is built and rendered (cpu: the "
+                        "plain PyTorch versions of the kernels)")
+    r.add_argument("--dataset", default="Synthetic",
+                   choices=["Replica", "TUM", "Synthetic"])
+    r.add_argument("--scene", default="")
+    r.add_argument("--data-root", default=None)
+    r.add_argument("--frame", type=int, default=0,
+                   help="dataset frame the scene is built from")
+    r.add_argument("--path", default="spline",
+                   choices=["ellipse_z", "ellipse_y", "spline"],
+                   help="spline keeps keyframe orientations (works for any "
+                        "trajectory); the ellipse orbits re-aim at the "
+                        "focus point and are degenerate for near-static "
+                        "(tracking-style) sequences")
+    r.add_argument("--n-views", type=int, default=24)
+    r.add_argument("--backend", default="pallas",
+                   choices=["pallas", "reference"],
+                   help="pallas: the general rasterizer's tiled kernels; "
+                        "reference: its dense oracle (small images only)")
+    r.add_argument("--height", type=int, default=240)
+    r.add_argument("--width", type=int, default=320)
+    r.add_argument("--out", default="runs/render")
+    r.set_defaults(fn=cmd_render)
     return ap
 
 
 def main(argv=None):
-    ap = build_parser()
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.fn is not cmd_render:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 

@@ -1,9 +1,9 @@
 """State carried across from the reference package.
 
-The reference's GaussianScene, PoseState, AdamState and TrackingConfig
-arrive as numpy arrays / plain values (the caller converts; this module
-imports nothing of the reference) and come out as the port's types on the
-requested device.
+The reference's GaussianScene, PoseState, AdamState, TrackingConfig and
+LPIPS parameters arrive as numpy arrays / plain values (the caller
+converts; this module imports nothing of the reference) and come out as
+the port's types on the requested device.
 """
 
 from __future__ import annotations
@@ -11,6 +11,9 @@ from __future__ import annotations
 import numpy as np
 
 from ._device import DEFAULT_DEVICE, as_f32, resolve_device
+# the reference's LPIPS parameters {'convs': [(w, b), ...], 'lins': [w, ...]}
+# as numpy arrays -> the port's (eval/lpips.py) on `device`
+from .eval.lpips import params_from_numpy as lpips_params_from_numpy  # noqa: F401
 from .models.gaussians import GaussianScene
 from .models.pose import PoseState
 from .opt.adam import AdamState

@@ -8,7 +8,8 @@ non-interlaced image and raises on anything else: Adam7 interlacing,
 palette images, other bit depths, 16-bit colour.
 
 `imwrite(path, img)` writes an 8-bit BGR image (H, W, 3) as RGB, or a
-uint16 (H, W) image as 16-bit grey, with filter 0 on every row.
+uint16 (H, W) image as 16-bit grey, with filter 0 on every row;
+`encode(img)` and `decode(data)` do the same in memory.
 """
 
 from __future__ import annotations
@@ -70,7 +71,11 @@ def _unfilter(raw: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
 
 def imread(path) -> np.ndarray:
     """Decode a PNG file as `cv2.imread(path, IMREAD_UNCHANGED)` does."""
-    data = Path(path).read_bytes()
+    return decode(Path(path).read_bytes(), path)
+
+
+def decode(data: bytes, path="<bytes>") -> np.ndarray:
+    """`imread` of a PNG file held in memory (path names it in errors)."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
@@ -115,9 +120,8 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def imwrite(path, img: np.ndarray) -> None:
-    """Write a uint8 BGR (H, W, 3) image as 8-bit RGB or a uint16 (H, W)
-    image as 16-bit grey (big-endian samples), filter 0 on every row."""
+def encode(img: np.ndarray) -> bytes:
+    """The PNG file `imwrite` writes for `img`, as bytes."""
     img = np.asarray(img)
     if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
         depth, ctype = 8, 2
@@ -131,8 +135,14 @@ def imwrite(path, img: np.ndarray) -> None:
     h, w = img.shape[:2]
     rows = np.ascontiguousarray(pix).view(np.uint8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
-    Path(path).write_bytes(
-        SIGNATURE
-        + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
-        + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
-        + _chunk(b"IEND", b""))
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                          0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def imwrite(path, img: np.ndarray) -> None:
+    """Write a uint8 BGR (H, W, 3) image as 8-bit RGB or a uint16 (H, W)
+    image as 16-bit grey (big-endian samples), filter 0 on every row."""
+    Path(path).write_bytes(encode(img))

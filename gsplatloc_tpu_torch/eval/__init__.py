@@ -1,2 +1,3 @@
-"""Evaluation: pose-error metrics and the experiment logger (JSONL, res.json,
-markdown tables)."""
+"""Evaluation: pose-error metrics, the experiment logger (JSONL, res.json,
+markdown tables), the fixture and render records' comparisons, figures and
+the depth colormap, image metrics (LPIPS) and the live viewer."""

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from .ops.camera import depth_to_normal
 from .ops.filters import sobel_magnitude
 
 
@@ -31,6 +32,21 @@ def depth_loss(depth_a, depth_b, loss_type: str = "l1"):
 def silhouette_loss(depth_a, depth_b, loss_type: str = "l1"):
     """Sobel-edge distance between (H, W) depth images."""
     return _reduce(sobel_magnitude(depth_a) - sobel_magnitude(depth_b), loss_type)
+
+
+def normal_consistency_loss(depth_real, depth_rendered, K,
+                            loss_type: str = "cosine"):
+    """Normal-map consistency of two (H, W) depth images. cosine: 1 - the
+    mean cosine similarity along dim 1 — over the W axis of the (H, W, 3)
+    normal maps, as the method computes it (kept)."""
+    n_real = depth_to_normal(depth_real, K)
+    n_rend = depth_to_normal(depth_rendered, K)
+    if loss_type == "cosine":
+        num = torch.sum(n_real * n_rend, dim=1)
+        den = (torch.linalg.norm(n_real, dim=1)
+               * torch.linalg.norm(n_rend, dim=1))
+        return 1.0 - torch.mean(num / torch.clamp_min(den, 1e-8))
+    return _reduce(n_real - n_rend, loss_type)
 
 
 class TrackingLoss(NamedTuple):

@@ -138,3 +138,27 @@ def count_clamped_scales(
     scale = _raw_scales(knn_sq_dists, eps, squared_quirk)
     cap = _quantile(scale, clamp_quantile) * clamp_ratio
     return torch.sum(scale > cap).to(torch.int32)
+
+
+def init_gs_scales_grid(point_grid: torch.Tensor, k: int = 5, window: int = 2,
+                        eps: float = 1e-24) -> torch.Tensor:
+    """Scale init for a depth-grid cloud (H, W, 3): grid kNN + the scale
+    formula of init_gs_scales_from_sq_dists."""
+    return init_gs_scales_from_sq_dists(
+        grid_knn_sq_dists(point_grid, k, window), eps)
+
+
+def remove_outliers(points: torch.Tensor, knn_sq_dists=None, k: int = 10,
+                    std_ratio: float = 10.0):
+    """Statistical outlier mask: the mean kNN distance per point; points
+    beyond mean + std_ratio * std (sample std) are outliers. The quirk of
+    the method is kept: the "mean distance" is the root of the mean of the
+    SQUARED squared distances. Returns (inlier_mask (N,) bool, threshold);
+    the caller applies the mask."""
+    if knn_sq_dists is None:
+        knn_sq_dists = brute_knn_sq_dists(points, k)
+    dist_avg = torch.sqrt(torch.mean(knn_sq_dists[:, 1:] ** 2, dim=-1))
+    mean = torch.mean(dist_avg)
+    std = torch.std(dist_avg, correction=1)
+    threshold = mean + std_ratio * std
+    return dist_avg < threshold, threshold

@@ -56,7 +56,7 @@ class SequenceResult:
     #   wait — main-thread time blocked on the prefetch worker (the part
     #     of host prepare the pipeline did not hide);
     #   optimize — main-thread time in optimize_pose;
-    #   collect — host readout + logging/checkpoints.
+    #   collect — host readout + logging, figures and checkpoints.
     stage_s: dict = field(default_factory=dict)
 
     @property
@@ -102,9 +102,13 @@ class SequenceRunner:
         **dataset_kwargs,
     ):
         if panel_every > 0 or pcd_every > 0:
-            raise NotImplementedError(
-                "panel_every / pcd_every need eval/visualize.py, which is "
-                "not ported yet (ROADMAP item 16)")
+            # the figures are drawn with matplotlib: raise here, naming it,
+            # not at the first pair that writes one
+            from ..eval.visualize import _mpl
+
+            _mpl()
+        self.panel_every = panel_every
+        self.pcd_every = pcd_every
         cfg = config or TrackingConfig()
         # the depth target is rendered through the same kernel family as
         # the tracking render, so representation artifacts cancel
@@ -220,6 +224,10 @@ class SequenceRunner:
             steps=int(out.steps_run), rebuilds=int(out.rebuilds),
             selects=int(out.selects),
         )
+        if self.panel_every and i % self.panel_every == 0:
+            self._write_panel(i, data, best_c2w, eT, eR, int(out.steps_run))
+        if self.pcd_every and i % self.pcd_every == 0:
+            self._write_pcd(i, data, best_c2w, src_c2w, eT, eR)
         if checkpoint_every and (i + 1) % checkpoint_every == 0:
             save_checkpoint(
                 self.logger.run_dir, i + 1, res.poses_est, res.eT,
@@ -229,6 +237,42 @@ class SequenceRunner:
         if progress:
             print(f"[track] pair {i}: eT={eT * 100:.4f}cm eR={eR:.4f}deg "
                   f"steps={int(out.steps_run)}", flush=True)
+
+    def _write_panel(self, i, data, best_c2w, eT, eR, steps):
+        """RGBD comparison panel of pair i: src's depth against the depth
+        rendered at the best pose through the depth target's kernel
+        family."""
+        from ..data.parser import render_depth_gt
+        from ..eval.visualize import plot_rgbd_panel
+
+        h, w = data.src_depth.shape
+        d_best = render_depth_gt(
+            data.tar_points, data.colors, self.parser.K, best_c2w, h, w,
+            grid_shape=(h, w), backend=self.parser.backend,
+            device=self.device)
+        plot_rgbd_panel(
+            data.src_depth.cpu().numpy(), d_best.cpu().numpy(),
+            self.logger.run_dir / "panels" / f"pair_{i:05d}.png",
+            title=(f"pair {i}: eT={eT*100:.4f}cm eR={eR:.4f}deg "
+                   f"steps={steps}"),
+        )
+
+    def _write_pcd(self, i, data, best_c2w, src_c2w, eT, eR):
+        """3D inspection PNG of pair i: the (normalized) tar cloud, every
+        8th point, and the tar / src GT / estimated camera frusta."""
+        from ..eval.visualize import visualize_point_cloud
+
+        h, w = data.src_depth.shape
+        visualize_point_cloud(
+            data.tar_points[::8].cpu().numpy(),
+            self.logger.run_dir / "pcd" / f"pair_{i:05d}.png",
+            colors=data.colors[::8].cpu().numpy(),
+            poses={"tar": data.tar_c2w.cpu().numpy(), "src GT": src_c2w,
+                   "est": best_c2w},
+            K=self.parser.K.cpu().numpy(), wh=(w, h),
+            title=(f"pair {i} (normalized frame): eT={eT*100:.4f}cm "
+                   f"eR={eR:.4f}deg"),
+        )
 
     def train(self, progress: bool = True, resume: bool = False,
               checkpoint_every: int = 50,

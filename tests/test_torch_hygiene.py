@@ -54,7 +54,9 @@ def test_package_layout_mirrors_the_reference():
                 "losses.py", "data/base.py", "data/synthetic.py",
                 "data/datasets.py", "data/parser.py", "cli.py",
                 "tracking/runner.py", "eval/metrics.py", "eval/logger.py",
-                "utils/checkpoint.py", "native/src/kdtree.h"):
+                "utils/checkpoint.py", "native/src/kdtree.h",
+                "data/traj.py", "eval/visualize.py", "eval/viewer.py",
+                "eval/lpips.py", "utils/profiling.py"):
         assert (PKG / rel).exists(), rel
         assert (ROOT / "gsplatloc_tpu" / rel).exists(), rel
     # the counterpart of ops/rasterize_pallas.py, named for what it is here
@@ -97,6 +99,43 @@ def test_tum_and_icp_paths_import_no_opencv(rel):
     assert "cv2" not in set(_imported_roots(PKG / rel)), rel
 
 
+def _module_level_imports(path):
+    """Roots imported by a module's own statements (not inside a function
+    or class body)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            stack += [n for f in ("body", "orelse", "finalbody", "handlers")
+                      for n in getattr(node, f, [])]
+        elif isinstance(node, ast.ExceptHandler):
+            stack += node.body
+    return roots
+
+
+def test_no_module_imports_plotting_or_image_libraries_at_import():
+    """The card's path imports no matplotlib, OpenCV or PIL: no module of
+    the port imports them at module level; matplotlib only inside
+    eval/visualize.py's functions, PIL nowhere, OpenCV only in Replica's
+    JPEG decode (test below)."""
+    for path in SOURCES:
+        bad = _module_level_imports(path) & {"matplotlib", "cv2", "PIL"}
+        assert not bad, f"{path} imports {bad} at module level"
+        used = set(_imported_roots(path))
+        rel = str(path.relative_to(ROOT))
+        assert "PIL" not in used, rel
+        if "matplotlib" in used:
+            assert rel == "gsplatloc_tpu_torch/eval/visualize.py", rel
+        if "cv2" in used:
+            assert rel == "gsplatloc_tpu_torch/data/datasets.py", rel
+
+
 def test_only_replica_decodes_with_opencv():
     tree = ast.parse((PKG / "data" / "datasets.py").read_text())
     users = {cls.name for cls in tree.body if isinstance(cls, ast.ClassDef)
@@ -124,7 +163,10 @@ def test_import_needs_no_cuda_and_builds_nothing():
         "from gsplatloc_tpu_torch.tracking import runner\n"
         "from gsplatloc_tpu_torch.eval import logger, metrics\n"
         "from gsplatloc_tpu_torch.eval import fixture_compare\n"
-        "from gsplatloc_tpu_torch.utils import checkpoint\n"
+        "from gsplatloc_tpu_torch.utils import checkpoint, profiling\n"
+        "from gsplatloc_tpu_torch.data import traj\n"
+        "from gsplatloc_tpu_torch.eval import visualize, viewer, lpips\n"
+        "from gsplatloc_tpu_torch.eval import render_compare, viridis\n"
         "assert native._lib is None\n"
         "assert not torch.cuda.is_available()\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
@@ -135,6 +177,8 @@ def test_import_needs_no_cuda_and_builds_nothing():
         "for m in sys.modules)\n"
         "assert 'triton' not in sys.modules\n"
         "assert 'cv2' not in sys.modules\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "assert 'PIL' not in sys.modules\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
@@ -180,13 +224,16 @@ def _entry_points():
             ["track", "--dataset", "Synthetic", "--frames", "3", "--height",
              "8", "--width", "8", "--num-iters", "2", "--knn", "grid",
              "--quiet", "--run-dir", str(ROOT / "_build_never")]),
+        "cli render": lambda: cli.main(
+            ["render", "--dataset", "Synthetic", "--height", "8", "--width",
+             "8", "--n-views", "2", "--out", str(ROOT / "_build_never")]),
     }
 
 
 @pytest.mark.parametrize("name", ["scene_from_point_cloud", "render_depth_gt",
                                   "_assemble_pair", "Parser",
                                   "optimize_pose", "SequenceRunner",
-                                  "cli track"])
+                                  "cli track", "cli render"])
 def test_entry_point_with_default_device_raises_without_a_card(name):
     """The default device is the card; with none present an entry point
     raises — it never carries on on the CPU by itself."""

@@ -3,6 +3,8 @@ from the same frame pair on the CPU (the port through its plain PyTorch
 versions, the reference through its plain-XLA step and its interpreted
 Pallas select)."""
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -215,10 +217,20 @@ def _unported(name, pair):
 
 @pytest.mark.parametrize("name", ["pallas", "fulltile_mesh", "cli_render",
                                   "panel_every"])
-def test_unported_paths_raise(pair, name):
-    """The multi-device mesh of the general and the full-tile renders, the
-    render fly-through and the runner's panels are later slices."""
-    with pytest.raises(NotImplementedError, match="not ported|ported"):
+def test_unported_paths_raise(pair, name, monkeypatch):
+    """The multi-device mesh of the general and the full-tile renders is a
+    later slice: it raises NotImplementedError. The render fly-through and
+    the runner's panels are ported and raise only where they cannot run:
+    `cli render` on its default device with no card, the runner's panels
+    with no matplotlib (hidden here), at construction."""
+    exc, match = {"cli_render": (RuntimeError, "cuda"),
+                  "panel_every": (ImportError, "matplotlib")}.get(
+        name, (NotImplementedError, "not ported|ported"))
+    if name == "cli_render" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    if name == "panel_every":
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(exc, match=match):
         _unported(name, pair)()
 
 
