@@ -129,10 +129,32 @@ Phases (each raises on failure; nothing carries on on the CPU):
                kernel; (c) the same command at 320x240 (the JAX package's
                defaults), every view within 1e-3 of the JAX package's
                record (eval/render_reference.json, render_compare.py).
+ 14. mesh    — tile-row bands (parallel/) on this card, a TileMesh of 4
+               bands on cuda:0 (43 tile rows padded to 44, 11 a band):
+               (a) K1 and K2 on the last band at its row0_px (528) against
+               their plain versions (K1 bit-equal, its rows bit-equal to
+               the whole image's; K2 within TOL_BWD_REL), the band buffers
+               of K3 per band the whole image's cut at the band
+               boundaries, both kernels re-timed at row0_px=0 (entries
+               appended to the kernels line with "row0_px", launches from
+               (c)); (b) K-cover 16, sub-tile, full-tile and general
+               renders at the near pose in bands against one device:
+               depth and alpha bit for bit, the viewmat gradient within
+               rtol 1e-4 / atol 1e-7 (also over the real cards when there
+               are several); (c) the phase-4 pair on one device and twice
+               in bands (default path, 300 steps; K=12 and sub-tile, 60;
+               general 20, timed only): the band runs bit-equal, eT/eR
+               within 2x of the single-device run's, ms per launched step
+               beside one device's; (d) two processes (gloo on 127.0.0.1,
+               2 bands each on this card) track the pair 20 steps on the
+               full-tile path: both ranks bit-equal to this process's 4
+               bands, shard_scenes splits 5 rooms [r::2]; (e) `cli track
+               --host-shard` on 2 Synthetic frames equals the run without
+               it. Prints the peak device memory.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Exit code 0 only if every phase passed.
-`--phase N` (repeatable; 3-13) runs phases 1, 2 and the phases named
+`--phase N` (repeatable; 3-14) runs phases 1, 2 and the phases named
 only, and then prints neither line.
 """
 
@@ -314,6 +336,21 @@ def frame_scene(pair, which, dev):
                                   device=dev)
 
 
+def near_viewmat(pair, dev):
+    """The viewmat about a pixel away from the tar pose (the staleness the
+    select gate allows), at which the step kernels are checked."""
+    from scipy.spatial.transform import Rotation
+
+    step = pair.get("near_step", 1.0)
+    delta = np.eye(4, dtype=np.float32)
+    delta[:3, :3] = Rotation.from_euler(
+        "xyz", np.multiply([0.06, -0.04, 0.03], step),
+        degrees=True).as_matrix()
+    delta[:3, 3] = np.multiply([0.005, -0.004, 0.006], step)
+    tar = torch.as_tensor(pair["tar_c2w"], device=dev).cpu().numpy()
+    return invert_se3(torch.as_tensor(tar @ delta, device=dev))
+
+
 def kernel_entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -444,25 +481,12 @@ def check_kernels(pair, dev, path_only=False):
     # --- K1 / K2: the step render at a pose about a pixel away from the
     # selection pose (the staleness the select gate allows), so that every
     # gradient path is live
-    from scipy.spatial.transform import Rotation
-
-    step = pair.get("near_step", 1.0)
-    delta = np.eye(4, dtype=np.float32)
-    delta[:3, :3] = Rotation.from_euler(
-        "xyz", np.multiply([0.06, -0.04, 0.03], step),
-        degrees=True).as_matrix()
-    delta[:3, 3] = np.multiply([0.005, -0.004, 0.006], step)
-    near_c2w = tar_c2w.cpu().numpy() @ delta
-    cam_s = cam_vector(invert_se3(torch.as_tensor(near_c2w, device=dev)),
-                       K, w, h).contiguous()
+    cam_s = cam_vector(near_viewmat(pair, dev), K, w, h).contiguous()
     m_out = kb_k.shape[2]
     f_k = kc.kcover_step_fwd(kb_k, cam_s, n_ty, n_tx, NEAR, FAR)
     f_p = kc._kcover_step_fwd_plain(kb_k, cam_s, n_ty, n_tx, NEAR, FAR)
     err = float((f_k - f_p).abs().max())
-    pieces = kc._kcover_fwd_pieces(kb_k, cam_s, n_ty, n_tx, NEAR, FAR)
-    needed = int((pieces[5] > kc.T_EPS).sum())  # records read until dead
-    chained = int((pieces[3] & (pieces[5] > kc.T_EPS)).sum())
-    del pieces
+    bnd_f, bnd_b, needed = step_bounds(kb_k, cam_s, n_ty, n_tx)
     log(f"[kernels] kcover_step_fwd: max_abs_err={err:.3e} "
         f"records_needed={needed} of {K_COVER * m_out}")
     coverage = float(f_p[1].mean())
@@ -474,9 +498,7 @@ def check_kernels(pair, dev, path_only=False):
         kb_k, cam_s, n_ty, n_tx, NEAR, FAR), 3, warm=1)
     entries.append(kernel_entry(
         "kcover_step_fwd", "gsplatloc_tpu_torch/csrc/kcover_step.cu",
-        "gsplatloc_tpu/ops/kcover.py:940", err, ms, pms,
-        bound(needed * 5 * 4 + 2 * 4 * m_out,
-              needed * (OPS_PROJECT + OPS_ALPHA_DIRECT)),
+        "gsplatloc_tpu/ops/kcover.py:940", err, ms, pms, bnd_f,
         records_needed=needed))
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -506,21 +528,32 @@ def check_kernels(pair, dev, path_only=False):
         kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a, f_k), 50)
     pms = time_ms(lambda: kc._kcover_step_bwd_plain(
         kb_k, cam_s, n_ty, n_tx, NEAR, FAR, g_d, g_a, f_k), 3, warm=1)
-    # bytes: the needed records once, the two cotangent rows and the
-    # forward's two rows, the 12 scalars; operations: one projection and
-    # one alpha per needed record, the chain per contributing record
     entries.append(kernel_entry(
         "kcover_step_bwd", "gsplatloc_tpu_torch/csrc/kcover_step.cu",
-        "gsplatloc_tpu/ops/kcover.py:964", err, ms, pms,
-        bound(needed * 5 * 4 + 4 * 4 * m_out + 48,
-              needed * (OPS_PROJECT + OPS_ALPHA_DIRECT)
-              + chained * OPS_CHAIN),
+        "gsplatloc_tpu/ops/kcover.py:964", err, ms, pms, bnd_b,
         max_rel_err=rel, regs=regs, spill_stores=spill_st,
         spill_loads=spill_ld))
     del kb_k
     if not path_only:
         entries += check_subtile_bwd(scene, vm, cam_s, K, dev, n_ty, n_tx)
     return entries
+
+
+def step_bounds(kb, cam, n_ty, n_tx):
+    """(K1's bound, K2's bound, records needed) of the step at `cam`. K1:
+    the records each pixel reads until its transmittance is dead, once,
+    and its two rows; one projection and one alpha per needed record. K2:
+    the same records, the two cotangent rows and the forward's two rows,
+    the 12 scalars; the chain per contributing record besides."""
+    m_out = kb.shape[2]
+    pieces = kc._kcover_fwd_pieces(kb, cam, n_ty, n_tx, NEAR, FAR)
+    needed = int((pieces[5] > kc.T_EPS).sum())  # records read until dead
+    chained = int((pieces[3] & (pieces[5] > kc.T_EPS)).sum())
+    del pieces
+    ops = needed * (OPS_PROJECT + OPS_ALPHA_DIRECT)
+    return (bound(needed * 5 * 4 + 2 * 4 * m_out, ops),
+            bound(needed * 5 * 4 + 4 * 4 * m_out + 48,
+                  ops + chained * OPS_CHAIN), needed)
 
 
 def check_index_select(slot3d, meta, cam, p8, kb_k, n_ty, n_tx):
@@ -1204,7 +1237,7 @@ def check_fused_tracking(pair, dev):
     return entries
 
 
-def run_main_path(pair, dev, config, backend="fused"):
+def run_main_path(pair, dev, config, backend="fused", mesh=None):
     """Phases 4, 5, 7 and 8: prepare -> scene -> optimize, through the
     entry points. The depth target is rendered by the tracking path's own
     kernel family, as the runner chooses it (the sub-tile walk for the
@@ -1229,7 +1262,7 @@ def run_main_path(pair, dev, config, backend="fused"):
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     res = optimize_pose(scene, out["tar_c2w"], out["src_depth"], pair["K"],
-                        W, H, config=config, backend=backend)
+                        W, H, config=config, backend=backend, mesh=mesh)
     e1.record()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -2166,19 +2199,456 @@ def run_render(dev):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tile-row bands (parallel/) on this card
+# ---------------------------------------------------------------------------
+
+MESH_BANDS = 4  # 1200x680: 43 tile rows padded to 44, 11 a band
+MESH_SHORT_STEPS = 60  # (c): K=12 and the sub-tile path
+MESH_TIME_STEPS = 20  # (c) the general path, timed only; (d)
+# (c): a band run's eT / eR against the single-device run's: at most 2x,
+# with floors at which both sit at the metrics' resolution
+MESH_CLASS = 2.0
+MESH_ET_FLOOR, MESH_ER_FLOOR = 1e-5, 5e-3  # m, deg
+MESH_ROOMS = [f"room{i}" for i in range(5)]  # (d): shard_scenes
+
+
+def band_mesh(dev, n=MESH_BANDS):
+    """n bands on this one card (each band its own kernel launches)."""
+    from gsplatloc_tpu_torch.parallel import make_tile_mesh
+
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return make_tile_mesh(devices=[f"cuda:{idx}"] * n)
+
+
+def check_band_step(pair, dev, mesh):
+    """Phase 14a: K1 and K2 on the last band (row0_px = its first global
+    pixel row) against their plain versions: K1 bit-equal, and its rows
+    bit-equal to the same rows of the whole image's K1; K2 within
+    TOL_BWD_REL. Both re-timed at row0_px=0 on the whole image (PERF.md
+    §6's shapes) and on the band. Returns their kernels-line entries."""
+    K = torch.as_tensor(pair["K"], device=dev)
+    vm = invert_se3(torch.as_tensor(pair["tar_c2w"], device=dev))
+    n_ty, n_tx = -(-H // TILE_H), -(-W // TILE_W)
+    d = mesh.shape["tiles"]
+    rows_per = -(-n_ty // d)
+    scene = frame_scene(pair, "tar", dev)
+    slot3d, meta, _ = kc.build_kcover_slot_buffer(scene, vm, K, W, H, NEAR,
+                                                  FAR)
+    del scene
+    cam = cam_vector(vm, K, W, H).contiguous()
+    kb = kc.build_kcover_buffer(slot3d, meta, cam, n_ty, n_tx, NEAR, FAR,
+                                k_cover=K_COVER)
+    bands = kc.build_kcover_buffer(slot3d, meta, cam, n_ty, n_tx, NEAR, FAR,
+                                   k_cover=K_COVER, mesh=mesh)
+    del slot3d
+    m_out, m_band = kb.shape[2], bands[0].shape[2]
+    whole = torch.cat(bands, dim=2)
+    cut_equal = (torch.equal(whole[:, :, :m_out], kb)
+                 and not bool(whole[:, :, m_out:].any()))
+    del whole
+    b = d - 1
+    row0 = float(b * rows_per * TILE_H)
+    kb_b = bands[b]
+    cam_s = cam_vector(near_viewmat(pair, dev), K, W, H).contiguous()
+    f_k = kc.kcover_step_fwd(kb_b, cam_s, rows_per, n_tx, NEAR, FAR, row0)
+    f_p = kc._kcover_step_fwd_plain(kb_b, cam_s, rows_per, n_tx, NEAR, FAR,
+                                    row0)
+    f_w = kc.kcover_step_fwd(kb, cam_s, n_ty, n_tx, NEAR, FAR)
+    inside = m_out - b * m_band  # the band's pixels inside the image
+    err = float((f_k - f_p).abs().max())
+    bit_equal = torch.equal(f_k, f_p)
+    rows_equal = torch.equal(f_k[:, :inside], f_w[:, b * m_band:])
+    log(f"[mesh] K3 per band: the {d} band buffers are the whole image's "
+        f"cut at the band boundaries (padded row uncovered): {cut_equal}")
+    log(f"[mesh] kcover_step_fwd at row0_px={row0:.0f} (band {b}, "
+        f"{rows_per} tile rows): max_abs_err={err:.3e} bit_equal="
+        f"{bit_equal}; rows bit-equal to the whole image's: {rows_equal}")
+    if not (cut_equal and bit_equal and rows_equal):
+        raise RuntimeError("K1 at a band's row0_px disagrees: "
+                           f"buffer cut {cut_equal}, plain {bit_equal} "
+                           f"(err {err}), whole-image rows {rows_equal}")
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    g_d = torch.randn(m_band, generator=gen).to(dev)
+    g_a = torch.randn(m_band, generator=gen).to(dev)
+    b_k = kc.kcover_step_bwd(kb_b, cam_s, rows_per, n_tx, NEAR, FAR, g_d,
+                             g_a, f_k, row0)
+    b_p = kc._kcover_step_bwd_plain(kb_b, cam_s, rows_per, n_tx, NEAR, FAR,
+                                    g_d, g_a, f_k, row0)
+    torch.cuda.synchronize()
+    err_b = float((b_k - b_p).abs().max())
+    rel = err_b / float(b_p.abs().max())
+    log(f"[mesh] kcover_step_bwd at row0_px={row0:.0f}: max_abs_err="
+        f"{err_b:.3e} max_rel_err={rel:.3e}")
+    if not rel <= TOL_BWD_REL:
+        raise RuntimeError(f"K2 at a band's row0_px disagrees: rel {rel}")
+
+    # times: the whole image at row0_px=0, as phase 3 times them, and the
+    # band at its row0_px
+    g_dw = torch.randn(m_out, generator=gen).to(dev)
+    g_aw = torch.randn(m_out, generator=gen).to(dev)
+    ms_f = time_ms(lambda: kc.kcover_step_fwd(
+        kb, cam_s, n_ty, n_tx, NEAR, FAR, 0.0), 50)
+    ms_b = time_ms(lambda: kc.kcover_step_bwd(
+        kb, cam_s, n_ty, n_tx, NEAR, FAR, g_dw, g_aw, f_w, 0.0), 50)
+    ms_fb = time_ms(lambda: kc.kcover_step_fwd(
+        kb_b, cam_s, rows_per, n_tx, NEAR, FAR, row0), 50)
+    ms_bb = time_ms(lambda: kc.kcover_step_bwd(
+        kb_b, cam_s, rows_per, n_tx, NEAR, FAR, g_d, g_a, f_k, row0), 50)
+    pms_f = time_ms(lambda: kc._kcover_step_fwd_plain(
+        kb, cam_s, n_ty, n_tx, NEAR, FAR), 3, warm=1)
+    pms_b = time_ms(lambda: kc._kcover_step_bwd_plain(
+        kb, cam_s, n_ty, n_tx, NEAR, FAR, g_dw, g_aw, f_w), 3, warm=1)
+    bnd_f, bnd_b, needed = step_bounds(kb, cam_s, n_ty, n_tx)
+    log(f"[mesh] whole image at row0_px=0: kcover_step_fwd {ms_f:.4f} ms, "
+        f"kcover_step_bwd {ms_b:.4f} ms (PERF.md §6: 0.1566 / 0.2540); the "
+        f"band at row0_px={row0:.0f}: {ms_fb:.4f} / {ms_bb:.4f} ms")
+    src = "gsplatloc_tpu_torch/csrc/kcover_step.cu"
+    return [
+        kernel_entry("kcover_step_fwd", src, "gsplatloc_tpu/ops/kcover.py:940",
+                     err, ms_f, pms_f, bnd_f, row0_px=row0, band_ms=ms_fb, bit_equal=bit_equal,
+                     band_rows_equal_whole_image=rows_equal,
+                     records_needed=needed),
+        kernel_entry("kcover_step_bwd", src, "gsplatloc_tpu/ops/kcover.py:964",
+                     err_b, ms_b, pms_b, bnd_b, row0_px=row0, band_ms=ms_bb, max_rel_err=rel),
+    ]
+
+
+def check_band_paths(pair, dev, mesh, tag):
+    """Phase 14b: each tracking path's render at the near pose over the
+    mesh against one device: depth and alpha bit for bit, the viewmat
+    gradient of a depth + alpha loss within rtol 1e-4 / atol 1e-7 (the
+    band partials summed in band order). K-cover 16 through the records
+    select per band; sub-tile; full-tile; general (backend "pallas")."""
+    from gsplatloc_tpu_torch.ops.rasterize import rasterize
+
+    K = torch.as_tensor(pair["K"], device=dev)
+    vm0 = invert_se3(torch.as_tensor(pair["tar_c2w"], device=dev))
+    vm_s = near_viewmat(pair, dev)
+    n_ty, n_tx = -(-H // TILE_H), -(-W // TILE_W)
+    scene = frame_scene(pair, "tar", dev)
+    cam0 = cam_vector(vm0, K, W, H).contiguous()
+
+    def kcover_path():
+        slot3d, meta, _ = kc.build_kcover_slot_buffer(scene, vm0, K, W, H,
+                                                      NEAR, FAR)
+        bufs = {m is None: kc.build_kcover_buffer(
+            slot3d, meta, cam0, n_ty, n_tx, NEAR, FAR, k_cover=K_COVER,
+            mesh=m) for m in (None, mesh)}
+        return lambda vm, m: kc.render_tracking_depth_kcover(
+            vm, K, W, H, bufs[m is None], NEAR, FAR, mesh=m)
+
+    def subtile_path():
+        slot3d, meta, _ = fs.build_subtile_slot_buffer(scene, vm0, K, W, H,
+                                                       NEAR, FAR)
+        return lambda vm, m: fs.render_tracking_depth_subtile(
+            vm, K, W, H, slot3d, meta, NEAR, FAR, mesh=m)
+
+    def fulltile_path():
+        slot3d, meta, _ = ft.build_slot_buffer(scene, vm0, K, W, H, NEAR,
+                                               FAR)
+        return lambda vm, m: ft.render_tracking_depth(
+            vm, K, W, H, slot3d, meta, NEAR, FAR, mesh=m)
+
+    def general_path():
+        def render(vm, m):
+            r, a = rasterize(scene.means, scene.quats, scene.scales,
+                             scene.opacities, scene.sh_coeffs, vm, K, W, H,
+                             sh_degree=1, render_mode="RGB+ED",
+                             backend="pallas", mesh=m)
+            return r[..., 3], a
+        return render
+
+    for name, make in (("kcover16", kcover_path), ("subtile", subtile_path),
+                       ("fulltile", fulltile_path),
+                       ("general", general_path)):
+        render = make()
+        # warm-up: a path's first forward + backward pays for its first
+        # launches, so each of the two timed below is a later call
+        vm = vm_s.clone().requires_grad_(True)
+        dd, aa = render(vm, None)
+        torch.autograd.grad(torch.mean(dd) + torch.mean(aa), vm)
+        out = {}
+        for m in (None, mesh):
+            vm = vm_s.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dd, aa = render(vm, m)
+            if m is None:
+                target = dd.detach() * 1.01
+            loss = torch.mean((dd - target) ** 2) + 0.05 * torch.mean(aa)
+            g = torch.autograd.grad(loss, vm)[0]
+            torch.cuda.synchronize()
+            out[m is None] = (dd.detach(), aa.detach(), g,
+                              (time.perf_counter() - t0) * 1e3)
+        (d1, a1, g1, t1), (d2, a2, g2, t2) = out[True], out[False]
+        equal = torch.equal(d1, d2) and torch.equal(a1, a2)
+        d_err = float(torch.nan_to_num(d1 - d2).abs().max())
+        a_err = float((a1 - a2).abs().max())
+        g_err = float((g1 - g2).abs().max())
+        g_rel = g_err / float(g1.abs().max())
+        g_ok = bool(torch.allclose(g2, g1, rtol=1e-4, atol=1e-7))
+        log(f"[mesh:{tag}] {name}: forward bit-equal {equal} (depth "
+            f"{d_err:.3e}, alpha {a_err:.3e}); viewmat gradient max err "
+            f"{g_err:.3e} ({g_rel:.3e} of its largest), within rtol 1e-4 / "
+            f"atol 1e-7: {g_ok}; forward + backward {t1:.1f} ms on one "
+            f"device, {t2:.1f} ms in {mesh.shape['tiles']} bands")
+        if not equal:
+            raise RuntimeError(
+                f"{name}: the banded forward differs from one device's "
+                f"(depth {d_err}, alpha {a_err}): every band runs the "
+                "single-device walk on its rows, so a difference is a "
+                "fault of the band split (row offset, starts, padding)")
+        if not g_ok:
+            raise RuntimeError(f"{name}: banded gradient off by {g_err}")
+        del render, out, d1, a1, d2, a2
+        torch.cuda.empty_cache()
+
+
+def mesh_pair(pair, dev, mesh, config, tag, backend="fused", runs=2):
+    """Phase 14c: the pair tracked on one device once and `runs` times over
+    the mesh: the band runs bit-equal to each other, their eT / eR within
+    MESH_CLASS of the single-device run's (or at its floors), the time per
+    launched step beside the single-device run's. Returns the first band
+    run's launch counts and the largest peak device memory of the
+    runs."""
+    single = run_main_path(pair, dev, config, backend)
+    banded = [run_main_path(pair, dev, config, backend, mesh=mesh)
+              for _ in range(runs)]
+    step_kernel = ("rasterize_bwd" if backend != "fused" else
+                   "fused_bwd" if not config.subtile else
+                   "kcover_step_fwd" if config.kcover > 0 else "subtile_bwd")
+    d = mesh.shape["tiles"]
+    src = single["out"]["src_c2w"]
+    e1 = pose_errors(single["res"].best_pose.to_c2w(), src)
+    r = banded[0]
+    e2 = pose_errors(r["res"].best_pose.to_c2w(), src)
+    l1 = single["counts"][step_kernel]
+    l2 = r["counts"][step_kernel] // d
+    log(f"[mesh:{tag}] one device: eT {e1[0] * 100:.4f} cm eR {e1[1]:.4f} "
+        f"deg, steps_run {single['res'].steps_run}, {single['opt_ms']:.1f} "
+        f"ms = {single['opt_ms'] / max(l1, 1):.3f} ms per launched step "
+        f"({l1} launched), {single['peak'] / 2**20:.0f} MiB")
+    log(f"[mesh:{tag}] {d} bands: eT {e2[0] * 100:.4f} cm eR {e2[1]:.4f} "
+        f"deg, steps_run {r['res'].steps_run} rebuilds {r['res'].rebuilds} "
+        f"selects {r['res'].selects}, {r['opt_ms']:.1f} ms = "
+        f"{r['opt_ms'] / max(l2, 1):.3f} ms per launched step ({l2} "
+        f"launched), {r['peak'] / 2**20:.0f} MiB; runs' optimize ms "
+        f"{[round(x['opt_ms'], 1) for x in banded]}")
+    log(f"[mesh:{tag}] launches {json.dumps(r['counts'])}")
+    res = r["res"]
+    for t in (res.best_pose.quat, res.best_pose.trans, res.best_loss):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"{tag}: non-finite value in the band run")
+    same = all(
+        torch.equal(res.best_pose.quat, x["res"].best_pose.quat)
+        and torch.equal(res.best_pose.trans, x["res"].best_pose.trans)
+        and torch.equal(res.best_loss, x["res"].best_loss)
+        and res.steps_run == x["res"].steps_run
+        and res.rebuilds == x["res"].rebuilds
+        and x["counts"] == r["counts"] for x in banded[1:])
+    log(f"[mesh:{tag}] band runs bit-equal to each other: {same}")
+    if not same:
+        raise RuntimeError(f"{tag}: the band runs differ")
+    if l2 < res.steps_run or r["counts"][step_kernel] % d:
+        raise RuntimeError(f"{tag}: step launches {r['counts'][step_kernel]}"
+                           f" for {res.steps_run} steps over {d} bands")
+    if not (e2[0] <= MESH_CLASS * max(e1[0], MESH_ET_FLOOR)
+            and e2[1] <= MESH_CLASS * max(e1[1], MESH_ER_FLOOR)):
+        raise RuntimeError(f"{tag}: band run's eT/eR {e2} out of the "
+                           f"single-device run's class {e1}")
+    return r["counts"], max(x["peak"] for x in [single] + banded)
+
+
+def mesh_child(rank, port):
+    """Phase 14d, one of two processes: a gloo group of 2 on 127.0.0.1,
+    this rank's 2 bands on this card, the full-tile path for
+    MESH_TIME_STEPS steps; prints its result (floats as hex) and its
+    share of MESH_ROOMS."""
+    import torch.distributed as dist
+
+    from gsplatloc_tpu_torch.parallel import (
+        global_tile_mesh, initialize, shard_scenes,
+    )
+
+    dev = torch.device("cuda", 0)
+    if not initialize(f"127.0.0.1:{port}", num_processes=2,
+                      process_id=rank):
+        raise RuntimeError("initialize() set up no process group")
+    try:
+        mesh = global_tile_mesh(["cuda:0"] * (MESH_BANDS // 2))
+        if (mesh.shape["tiles"], mesh.band0) != (MESH_BANDS,
+                                                 rank * MESH_BANDS // 2):
+            raise RuntimeError(f"global mesh {mesh}")
+        r = run_main_path(make_pair(), dev, MESH_DIST_CONFIG, mesh=mesh)
+        out = mesh_result(r)
+        out.update(rank=rank, rooms=shard_scenes(MESH_ROOMS),
+                   opt_ms=r["opt_ms"], launches=r["counts"]["fused_bwd"])
+        print("RESULT " + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+MESH_DIST_CONFIG = TrackingConfig(max_steps=MESH_TIME_STEPS, warmup_steps=5,
+                                  subtile=False, kcover=0)
+
+
+def mesh_result(r):
+    res = r["res"]
+    hexes = [float(v).hex() for t in (res.best_pose.quat,
+                                      res.best_pose.trans,
+                                      res.final_pose.quat,
+                                      res.final_pose.trans) for v in t]
+    return dict(steps_run=res.steps_run, pose=hexes,
+                best_loss=float(res.best_loss).hex())
+
+
+def mesh_distributed(pair, dev, mesh):
+    """Phase 14d: two processes (`--mesh-rank`), each owning 2 of the 4
+    bands on this card through gloo, track the pair on the full-tile path
+    for MESH_TIME_STEPS steps; both ranks' poses and losses must be
+    bit-equal to each other and to this process's run over the same 4
+    bands; shard_scenes must give the ranks MESH_ROOMS[r::2]. Also times
+    the full-tile path on one device and in bands for the same steps.
+    Returns the largest peak device memory of this process's two runs."""
+    single = run_main_path(pair, dev, MESH_DIST_CONFIG)
+    local = run_main_path(pair, dev, MESH_DIST_CONFIG, mesh=mesh)
+    d = mesh.shape["tiles"]
+    for tag, r, n in (("one device", single, 1), (f"{d} bands", local, d)):
+        launched = r["counts"]["fused_bwd"] // n
+        log(f"[mesh:fulltile] {tag}: {r['opt_ms']:.1f} ms = "
+            f"{r['opt_ms'] / max(launched, 1):.3f} ms per launched step "
+            f"({launched} launched), {r['peak'] / 2**20:.0f} MiB")
+    want = mesh_result(local)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(rank), "--mesh-port", str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results = []
+    for rank, (proc, text) in enumerate(zip(procs, outs)):
+        lines = [x for x in text.splitlines() if x.startswith("RESULT ")]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"rank {rank} failed (exit "
+                               f"{proc.returncode}):\n{text[-4000:]}")
+        results.append(json.loads(lines[-1][len("RESULT "):]))
+    for r in results:
+        log(f"[mesh:dist] rank {r['rank']}: steps_run {r['steps_run']} "
+            f"best_loss {float.fromhex(r['best_loss']):.6e} rooms "
+            f"{r['rooms']}; {r['opt_ms']:.1f} ms for {r['launches']} band "
+            f"launches of K7b")
+    same = all({k: r[k] for k in want} == want for r in results)
+    log(f"[mesh:dist] 2 processes x 2 bands (gloo) bit-equal to each other "
+        f"and to one process's {d} bands: {same} "
+        f"({time.perf_counter() - t0:.1f} s for both processes)")
+    if not same:
+        raise RuntimeError(f"distributed results differ: {results} vs {want}")
+    if [r["rooms"] for r in results] != [MESH_ROOMS[0::2], MESH_ROOMS[1::2]]:
+        raise RuntimeError(f"shard_scenes: {[r['rooms'] for r in results]}")
+    return max(single["peak"], local["peak"])
+
+
+def host_shard_cli():
+    """Phase 14e: `cli track --host-shard` in one process equals the run
+    without the flag (res.json)."""
+    from gsplatloc_tpu_torch import cli
+
+    root = Path(tempfile.mkdtemp(prefix="gsl_shard_"))
+    try:
+        res = {}
+        for flag in ([], ["--host-shard"]):
+            run_dir = root / ("shard" if flag else "plain")
+            cli.main(["track", "--dataset", "Synthetic", "--frames", "2",
+                      "--height", str(H), "--width", str(W), "--num-iters",
+                      str(MESH_SHORT_STEPS), "--run-dir", str(run_dir),
+                      "--quiet", *flag])
+            res[bool(flag)] = json.loads((run_dir / "res.json").read_text())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = res[True] == res[False]
+    log(f"[mesh:cli] track --host-shard (one process) res.json equal to the "
+        f"run without it: {same}; {json.dumps(res[True])}")
+    if not same:
+        raise RuntimeError("--host-shard changed the result of one process")
+
+
+def run_mesh(pair, dev):
+    """Phase 14: MESH_BANDS tile-row bands on this card. Returns K1 and K2's
+    kernels-line entries at a band's row0_px, their launches from (c)'s
+    default-path band run."""
+    n_cards = torch.cuda.device_count()
+    log(f"[mesh] torch.cuda.device_count() = {n_cards}")
+    mesh = band_mesh(dev)
+    log(f"[mesh] {mesh}")
+    torch.cuda.reset_peak_memory_stats()
+    entries = check_band_step(pair, dev, mesh)
+    torch.cuda.empty_cache()
+    check_band_paths(pair, dev, mesh, f"{MESH_BANDS} bands, one card")
+    if n_cards > 1:
+        from gsplatloc_tpu_torch.parallel import make_tile_mesh
+
+        check_band_paths(pair, dev, make_tile_mesh(),
+                         f"{n_cards} cards")
+    # (a) and (b) ran under one counter; each tracked run resets it
+    peaks = [torch.cuda.max_memory_allocated()]
+    torch.cuda.empty_cache()
+    counts, peak = mesh_pair(pair, dev, mesh, TrackingConfig(max_steps=300),
+                             "kcover16")
+    peaks.append(peak)
+    for name in DEFAULT_PATH:
+        if counts[name] < 1:
+            raise RuntimeError(f"the band run never launched {name}")
+    if counts["kcover_step_fwd"] != counts["kcover_step_bwd"]:
+        raise RuntimeError("forward and backward step launches differ")
+    for e in entries:
+        e["launches"] = counts[e["name"]]
+    short = dict(max_steps=MESH_SHORT_STEPS, warmup_steps=20)
+    for cfg, tag, backend, runs in (
+            (TrackingConfig(kcover=K_INDEX, **short), "kcover12", "fused", 2),
+            (TrackingConfig(kcover=0, **short), "subtile", "fused", 2),
+            (TrackingConfig(max_steps=MESH_TIME_STEPS, warmup_steps=5),
+             "general", "pallas", 1)):
+        peaks.append(mesh_pair(pair, dev, mesh, cfg, tag, backend, runs)[1])
+    torch.cuda.empty_cache()
+    peaks.append(mesh_distributed(pair, dev, mesh))
+    host_shard_cli()
+    log(f"[mesh] peak device memory over phase 14 (the largest of its "
+        f"stages' peaks): {max(peaks) / 2**20:.0f} MiB")
+    return entries
+
+
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                  "GPU (all phases unless --phase is given)")
-    ap.add_argument("--phase", type=int, action="append", choices=range(3, 14),
+    ap.add_argument("--phase", type=int, action="append", choices=range(3, 15),
                     help="run only this phase (repeatable; phases 1 and 2 "
                          "always run, the kernels line needs them all)")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # phase 14d's two processes
+    ap.add_argument("--mesh-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    phases = set(args.phase or range(3, 14))
+    phases = set(args.phase or range(3, 15))
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is False")
+    if args.mesh_rank is not None:
+        mesh_child(args.mesh_rank, args.mesh_port)
+        return
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -2373,8 +2843,16 @@ def main(argv=None):
         torch.cuda.empty_cache()
         log(f"[render] phase 13: {time.perf_counter() - t0:.1f} s")
 
+    # 14. tile-row bands (parallel/) on this card
+    mesh_entries = []
+    if 14 in phases:
+        t0 = time.perf_counter()
+        mesh_entries = run_mesh(pair, dev)
+        torch.cuda.empty_cache()
+        log(f"[mesh] phase 14: {time.perf_counter() - t0:.1f} s")
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(3, 14)):
+    if phases != set(range(3, 15)):
         log(f"phases {sorted(phases)} passed (no kernels line: not every "
             "phase ran)")
         return
@@ -2391,6 +2869,8 @@ def main(argv=None):
     entries += tum_entries
     # K6a on phase 13's novel view, its launches from 13a's run
     entries += render_entries
+    # K1 / K2 at a band's row0_px, their launches from 14c's band run
+    entries += mesh_entries
     log(smi_line())
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ Layer map:
   opt/      — Adam + the eager pose-tracking loop
   data/     — dataset loaders, synthetic scenes, frame-pair parser
   kernels/  — nvcc build + ctypes binding of csrc/*.cu
+  parallel/ — tile-row bands over several devices and processes (mesh=)
   convert   — state carried over from the reference package (numpy in)
 
 Precision: float32 everywhere; TF32 is switched off for matmuls and cuDNN

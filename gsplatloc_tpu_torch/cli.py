@@ -58,10 +58,6 @@ def cmd_track(args):
     from .opt.tracking import TrackingConfig
     from .tracking.runner import SequenceRunner
 
-    if args.host_shard:
-        raise NotImplementedError(
-            "--host-shard needs parallel/distributed.py, which is not "
-            "ported yet (ROADMAP item 17)")
     set_random_seed(args.seed)
 
     cfg = TrackingConfig(max_steps=args.num_iters, patience=200,
@@ -73,6 +69,12 @@ def cmd_track(args):
                  "ReplicaFixture": ReplicaFixture.ROOMS}.get(args.dataset,
                                                              [""])
     rooms = _room_list(args, all_rooms)
+    if args.host_shard:
+        # several processes: each takes its room subset (scene-level data
+        # parallelism; parallel/distributed.py). No-op in one process.
+        from .parallel import shard_scenes
+
+        rooms = shard_scenes(rooms)
     results = {args.dataset: {}}
     run_root = Path(args.run_dir)
     for room in rooms:
@@ -362,7 +364,9 @@ def build_parser():
     t.add_argument("--width", type=int, default=1200)
     t.add_argument("--quiet", action="store_true")
     t.add_argument("--host-shard", action="store_true",
-                   help="multi-host room sharding (not ported: raises)")
+                   help="several processes: this process tracks "
+                        "rooms[i::P] of the process group set up by "
+                        "parallel.initialize(); one process: all rooms")
     t.set_defaults(fn=cmd_track)
 
     tb = sub.add_parser("tables", help="res.json -> markdown tables")

@@ -27,6 +27,11 @@
 // suffix is 0 and so is its d_alpha. It is gated off by `live` (as the
 // sub-tile backward gates it), so it contributes exactly what the
 // two-sweep form gave it, 0, rather than the residue times 1/(1-alpha).
+// Both kernels take row0_px, the first global pixel row of the band they
+// render (0 for the whole image): a band of a tile mesh
+// (parallel/sharded.py) holds the cover records of its own pixels only and
+// evaluates them at their global pixel centres, as the reference's step
+// kernels read row0_px from their scalar vector.
 // The 12 pose partials are reduced warp -> block -> (n_blocks, 12)
 // scratch, and a second kernel adds the block rows in a fixed order in
 // double: no float atomics, so a run is bitwise repeatable (reduce.cuh;
@@ -80,12 +85,12 @@ __global__ void __launch_bounds__(STEP_THREADS)
 kcover_step_fwd_kernel(const float* __restrict__ cam_p,
                        const float* __restrict__ kbuf,
                        float* __restrict__ out, int k_cover, long long m_out,
-                       int n_tx, float near_p, float far_p) {
+                       int n_tx, float row0_px, float near_p, float far_p) {
     const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (f >= m_out) return;
     const Cam cam = load_cam(cam_p);
     float px, py;
-    pixel_center(f, n_tx, px, py);
+    pixel_center(f, n_tx, row0_px, px, py);
     float t = 1.0f, dacc = 0.0f, aacc = 0.0f;
     for (int k = 0; k < k_cover; ++k) {
         const StepEval e = step_eval(kbuf, k, k_cover, m_out, f, cam, px, py,
@@ -106,7 +111,8 @@ kcover_step_bwd_kernel(const float* __restrict__ cam_p,
                        const float* __restrict__ gd,
                        const float* __restrict__ ga,
                        float* __restrict__ scratch, int k_cover,
-                       long long m_out, int n_tx, float near_p, float far_p) {
+                       long long m_out, int n_tx, float row0_px, float near_p,
+                       float far_p) {
     const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const Cam cam = load_cam(cam_p);
     float part[12];
@@ -115,7 +121,7 @@ kcover_step_bwd_kernel(const float* __restrict__ cam_p,
 
     if (f < m_out) {
         float px, py;
-        pixel_center(f, n_tx, px, py);
+        pixel_center(f, n_tx, row0_px, px, py);
         const float g_d = gd[f];
         const float g_a = ga[f];
         // total of w * phi over the live records, from the forward's rows
@@ -173,14 +179,14 @@ int launch_sum12(const float* scratch, float* out, int n_blocks,
 
 extern "C" int gsl_kcover_step_fwd(const void* cam, const void* kbuf,
                                    void* out, int k_cover, long long m_out,
-                                   int n_tx, float near_p, float far_p,
-                                   void* stream) {
+                                   int n_tx, float row0_px, float near_p,
+                                   float far_p, void* stream) {
     const int threads = gsl::STEP_THREADS;
     const long long blocks = (m_out + threads - 1) / threads;
     gsl::kcover_step_fwd_kernel<<<(unsigned)blocks, threads, 0,
                                   (cudaStream_t)stream>>>(
         (const float*)cam, (const float*)kbuf, (float*)out, k_cover, m_out,
-        n_tx, near_p, far_p);
+        n_tx, row0_px, near_p, far_p);
     return (int)cudaGetLastError();
 }
 
@@ -188,16 +194,17 @@ extern "C" int gsl_kcover_step_bwd(const void* cam, const void* kbuf,
                                    const void* fwd, const void* gd,
                                    const void* ga,
                                    void* scratch, void* out, int k_cover,
-                                   long long m_out, int n_tx, float near_p,
-                                   float far_p, int n_blocks, void* stream) {
+                                   long long m_out, int n_tx, float row0_px,
+                                   float near_p, float far_p, int n_blocks,
+                                   void* stream) {
     const int threads = gsl::STEP_THREADS;
     const long long blocks = (m_out + threads - 1) / threads;
     if (blocks != n_blocks) return (int)cudaErrorInvalidValue;
     gsl::kcover_step_bwd_kernel<<<(unsigned)blocks, threads, 0,
                                   (cudaStream_t)stream>>>(
         (const float*)cam, (const float*)kbuf, (const float*)fwd,
-        (const float*)gd, (const float*)ga, (float*)scratch, k_cover, m_out, n_tx, near_p,
-        far_p);
+        (const float*)gd, (const float*)ga, (float*)scratch, k_cover, m_out,
+        n_tx, row0_px, near_p, far_p);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
     return gsl::launch_sum12((const float*)scratch, (float*)out, n_blocks,

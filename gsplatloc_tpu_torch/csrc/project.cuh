@@ -220,8 +220,12 @@ __device__ __forceinline__ void pose_chain(const Proj& p, const Cam& cam,
     }
 }
 
-// Pixel centre of flat index f in the sub-tile-major layout.
-__device__ __forceinline__ void pixel_center(long long f, int n_tx, float& px,
+// Pixel centre of flat index f in the sub-tile-major layout of a band whose
+// first pixel row is row0_px (0 for the whole image; a band of a tile mesh
+// renders its rows at their global y). Every term is an exact small integer
+// or half, so a band's rows are bit-equal to the same rows of the image.
+__device__ __forceinline__ void pixel_center(long long f, int n_tx,
+                                             float row0_px, float& px,
                                              float& py) {
     const long long st = f / P_SUB;
     const int within = (int)(f - st * P_SUB);
@@ -231,7 +235,7 @@ __device__ __forceinline__ void pixel_center(long long f, int n_tx, float& px,
     const int r = within / SUB_W;
     const int c = within - r * SUB_W;
     px = (float)(gx * SUB_W + c) + 0.5f;
-    py = (float)(gy * SUB_H + r) + 0.5f;
+    py = (float)(gy * SUB_H + r) + 0.5f + row0_px;
 }
 
 }  // namespace gsl

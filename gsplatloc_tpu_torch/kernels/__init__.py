@@ -41,8 +41,9 @@ _F = ctypes.c_float
 
 # C entry point -> argtypes (every pointer and the stream are c_void_p)
 _SIGNATURES = {
-    "gsl_kcover_step_fwd": [_P, _P, _P, _I, _L, _I, _F, _F, _P],
-    "gsl_kcover_step_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _F, _I, _P],
+    "gsl_kcover_step_fwd": [_P, _P, _P, _I, _L, _I, _F, _F, _F, _P],
+    "gsl_kcover_step_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _F, _F,
+                            _I, _P],
     "gsl_kcover_select_records": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _F, _F, _P],
     "gsl_kcover_select": [_P, _P, _P, _I, _L, _L, _I, _I, _P],
     "gsl_project8": [_P, _P, _P, _L, _F, _F, _P],

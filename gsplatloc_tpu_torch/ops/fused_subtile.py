@@ -650,16 +650,30 @@ def subtile_render(slot3d, meta, cam, n_ty, n_tx, m_pad, near, far):
 
 def render_tracking_depth_subtile(viewmat, K, width: int, height: int,
                                   slot3d, meta, near: float = 1e-2,
-                                  far: float = 1e10):
+                                  far: float = 1e10, mesh=None):
     """Normalized depth + alpha from a prebuilt sub-tile slot buffer,
-    cropped to (height, width); differentiable w.r.t. viewmat."""
+    cropped to (height, width); differentiable w.r.t. viewmat. With a
+    TileMesh (parallel/sharded.py) the macro-tile rows render in bands over
+    its devices (n_ty padded to the band count) and the pose partials are
+    summed in band order."""
     n_ty = -(-height // TILE_H)
     n_tx = -(-width // TILE_W)
     m_pad = slot3d.shape[1]
     cam = cam_vector(viewmat, K, width, height)
-    d_acc, alpha = subtile_render(
-        slot3d, meta, cam, n_ty, n_tx, m_pad, near, far
-    )
+    if mesh is None:
+        d_acc, alpha = subtile_render(
+            slot3d, meta, cam, n_ty, n_tx, m_pad, near, far
+        )
+    else:
+        from ..parallel.sharded import (
+            _check_mesh, _pad_starts, sharded_subtile_render,
+        )
+
+        d = _check_mesh(mesh)
+        n_ty_pad = -(-n_ty // d) * d
+        starts = _pad_starts(meta[1:], (n_ty_pad - n_ty) * n_tx * N_SUB)
+        d_acc, alpha = sharded_subtile_render(slot3d, starts, cam, n_ty_pad,
+                                              n_tx, mesh, near, far)
     d_acc = d_acc[:height, :width]
     alpha = alpha[:height, :width]
     depth = d_acc / alpha.clamp_min(1e-10)

@@ -689,16 +689,25 @@ def render_tracking_depth(viewmat, K, width: int, height: int,
                           slot3d, meta, near: float = 1e-2,
                           far: float = 1e10, mesh=None):
     """Expected-depth render from a prebuilt slot buffer; differentiable
-    w.r.t. viewmat. Returns (depth (H, W), alpha (H, W))."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_tracking_depth(mesh=...): tile-row bands over several "
-            "devices (parallel/sharded.py) are not ported yet (ROADMAP item "
-            "17)")
+    w.r.t. viewmat. Returns (depth (H, W), alpha (H, W)). With a TileMesh
+    (parallel/sharded.py) the tile rows render in bands over its devices
+    (n_ty padded to the band count) and the pose partials are summed in
+    band order."""
     n_ty = -(-height // TILE_H)
     n_tx = -(-width // TILE_W)
     cam = cam_vector(viewmat, K, width, height)
-    d_acc, alpha = fused_render(slot3d, meta, cam, n_ty, n_tx, near, far)
+    if mesh is None:
+        d_acc, alpha = fused_render(slot3d, meta, cam, n_ty, n_tx, near, far)
+    else:
+        from ..parallel.sharded import (
+            _check_mesh, _pad_starts, sharded_fused_render,
+        )
+
+        d = _check_mesh(mesh)
+        n_ty_pad = -(-n_ty // d) * d
+        starts = _pad_starts(meta[1:], (n_ty_pad - n_ty) * n_tx)
+        d_acc, alpha = sharded_fused_render(slot3d, starts, cam, n_ty_pad,
+                                            n_tx, mesh, near, far)
     d_acc = d_acc[:height, :width]
     alpha = alpha[:height, :width]
     depth = d_acc / alpha.clamp_min(1e-10)

@@ -240,7 +240,7 @@ select_kcover.launches = 0
 
 def build_kcover_buffer(slot3d, meta, cam, n_ty: int, n_tx: int,
                         near: float, far: float, k_cover: int = 8,
-                        via: str = "records"):
+                        via: str = "records", mesh=None):
     """Re-selection: each pixel's K cover records as a dense
     (NREC_KC, K, M_out) buffer (the step loop reads it with zero gathers).
 
@@ -250,7 +250,20 @@ def build_kcover_buffer(slot3d, meta, cam, n_ty: int, n_tx: int,
     projects the slots (`project8`), runs the index select (K8) and
     row-gathers the records from slot3d[:NREC_KC] with a zero column
     appended for the dummy. Both routes walk alike, so they build the same
-    buffer bit for bit."""
+    buffer bit for bit. With a TileMesh (parallel/sharded.py) the selection
+    runs per macro-tile-row band (n_ty padded to the band count) and the
+    buffer comes back pixel-banded: a list of this process's bands'
+    (NREC_KC, K, m_out_band) buffers, each on its band's device."""
+    if mesh is not None:
+        from ..parallel.sharded import (
+            _check_mesh, _pad_starts, sharded_kcover_build,
+        )
+
+        d = _check_mesh(mesh)
+        n_ty_pad = -(-n_ty // d) * d
+        starts = _pad_starts(meta[1:], (n_ty_pad - n_ty) * n_tx * N_SUB)
+        return sharded_kcover_build(slot3d, starts, cam, n_ty_pad, n_tx,
+                                    mesh, near, far, k_cover, via=via)
     with torch.no_grad():
         if via == "records" and (k_cover * NREC_KC) % 8 == 0:
             return select_kcover_records(slot3d, meta, cam, n_ty, n_tx,
@@ -384,12 +397,29 @@ def _kcover_fwd_pieces(kbuf, cam, n_ty: int, n_tx: int,
     return pr, alpha_raw, alpha, ok, live, t_excl, w, qz, px, py
 
 
-def _kcover_step_fwd_plain(kbuf, cam, n_ty, n_tx, near, far):
+def _kcover_step_fwd_plain(kbuf, cam, n_ty, n_tx, near, far, row0_px=0.0):
     """Plain PyTorch K-cover step forward: (2, M_out) scrambled rows
-    [depth_acc; alpha]."""
-    _pr, _ar, _al, _ok, _lv, _te, w, qz, _px, _py = _kcover_fwd_pieces(
-        kbuf, cam, n_ty, n_tx, near, far)
-    return torch.stack([torch.sum(w * qz, dim=0), torch.sum(w, dim=0)])
+    [depth_acc; alpha]. The transmittance and both sums run over the K
+    axis in record order, one record at a time, as the kernel runs them
+    (a record after the pixel's death adds w = 0)."""
+    _pr, _ar, alpha, _ok, _lv, _te, _w, qz, _px, _py = _kcover_fwd_pieces(
+        kbuf, cam, n_ty, n_tx, near, far, row0_px)
+    return _step_totals(alpha, qz)
+
+
+def _step_totals(alpha, qz):
+    """(2, M_out) [depth_acc; alpha] of the gated (K, M_out) alphas and
+    depths, summed over K in record order (the kernel's order)."""
+    t = torch.ones_like(alpha[0])
+    dacc = torch.zeros_like(t)
+    aacc = torch.zeros_like(t)
+    for k in range(alpha.shape[0]):
+        om = 1.0 - alpha[k]
+        w = torch.where(t * om > T_EPS, t * alpha[k], 0.0)
+        dacc = dacc + w * qz[k]
+        aacc = aacc + w
+        t = t * om
+    return torch.stack([dacc, aacc])
 
 
 def render_kcover_ref(kbuf, cam, n_ty: int, n_tx: int,
@@ -405,12 +435,12 @@ def render_kcover_ref(kbuf, cam, n_ty: int, n_tx: int,
 
 
 def _kcover_step_adjoint(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a,
-                         fwd=None):
+                         fwd=None, row0_px=0.0):
     """The compositing adjoint of the K-cover step per (record, pixel):
     returns (pr, d_sigma (K, M_out), qz_bar (K, M_out), px, py). g_d/g_a:
     (M_out,) scrambled cotangents; fwd: the forward's (2, M_out) rows
     [depth_acc; alpha], or None to total them here from the recomputed
-    forward.
+    forward; row0_px: the band's first global pixel row.
 
     One sweep, as the kernel: the suffix sum of w*phi after record k is
     g_tot - (running sum through k), with g_tot = g_d*depth_acc +
@@ -419,9 +449,9 @@ def _kcover_step_adjoint(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a,
     exact suffix is 0, and the f32 suffix there is only the rounding
     residue of g_tot against the running sum."""
     pr, alpha_raw, alpha, ok, live, t_excl, w, qz, px, py = (
-        _kcover_fwd_pieces(kbuf, cam, n_ty, n_tx, near, far))
+        _kcover_fwd_pieces(kbuf, cam, n_ty, n_tx, near, far, row0_px))
     if fwd is None:
-        fwd = torch.stack([torch.sum(w * qz, dim=0), torch.sum(w, dim=0)])
+        fwd = _step_totals(alpha, qz)
     g_tot = (g_d * fwd[0] + g_a * fwd[1])[None, :]
     g_d = g_d[None, :]
     g_a = g_a[None, :]
@@ -437,17 +467,17 @@ def _kcover_step_adjoint(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a,
 
 
 def _kcover_step_bwd_plain(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a,
-                           fwd=None):
+                           fwd=None, row0_px=0.0):
     """Plain PyTorch hand-written backward to the pose: the compositing
-    adjoint over the K axis (`_kcover_step_adjoint`, which takes g_d, g_a
-    and fwd), and the chain of d_sigma / the direct depth term to the pose
+    adjoint over the K axis (`_kcover_step_adjoint`, which takes g_d, g_a,
+    fwd and row0_px), and the chain of d_sigma / the direct depth term to the pose
     with ONE `_pose_chain` call. Each record instance touches exactly one
     pixel, so its moment frame is that pixel itself (x0=px, y0=py): the
     only nonzero moment is m0 = d_sigma. Returns the 12 pose scalars
     [dR(9), dt(3)]."""
     _, k_cover, m_out = kbuf.shape
     pr, d_sigma, qz_bar, px, py = _kcover_step_adjoint(
-        kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, fwd)
+        kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, fwd, row0_px)
     km = k_cover * m_out
     zero = torch.zeros((1, km), dtype=F32, device=kbuf.device)
     d = _pose_chain(
@@ -488,21 +518,23 @@ def _check_step_args(kbuf, cam):
     return k_cover, m_out
 
 
-def kcover_step_fwd(kbuf, cam, n_ty, n_tx, near, far):
-    """K-cover step forward: (2, M_out) scrambled rows [depth_acc; alpha].
-    CUDA tensor: the hand-written kernel (csrc/kcover_step.cu
+def kcover_step_fwd(kbuf, cam, n_ty, n_tx, near, far, row0_px=0.0):
+    """K-cover step forward: (2, M_out) scrambled rows [depth_acc; alpha]
+    of a band whose first global pixel row is row0_px (0: the whole
+    image). CUDA tensor: the hand-written kernel (csrc/kcover_step.cu
     kcover_step_fwd_kernel, which replaces the Pallas
     _kcover_step_fwd_kernel; bound by bytes — one thread per pixel streams
     its K records, coalesced, and stops at a dead transmittance). CPU
     tensor: `_kcover_step_fwd_plain`."""
     if not kbuf.is_cuda:
-        return _kcover_step_fwd_plain(kbuf, cam, n_ty, n_tx, near, far)
+        return _kcover_step_fwd_plain(kbuf, cam, n_ty, n_tx, near, far,
+                                      row0_px)
     k_cover, m_out = _check_step_args(kbuf, cam)
     out = torch.empty((2, m_out), dtype=F32, device=kbuf.device)
     lib = kernels.load()
     err = lib.gsl_kcover_step_fwd(
         cam.data_ptr(), kbuf.data_ptr(), out.data_ptr(), k_cover, m_out,
-        n_tx, float(near), float(far), kernels.stream_ptr())
+        n_tx, float(row0_px), float(near), float(far), kernels.stream_ptr())
     kernels.check(err, "kcover_step_fwd")
     kcover_step_fwd.launches += 1
     return out
@@ -510,10 +542,12 @@ def kcover_step_fwd(kbuf, cam, n_ty, n_tx, near, far):
 
 kcover_step_fwd.launches = 0
 
-def kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, fwd=None):
+def kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, fwd=None,
+                    row0_px=0.0):
     """K-cover step backward: the 12 pose scalars [dR(9), dt(3)] from the
     scrambled cotangent rows g_d/g_a (M_out,) and the forward's (2, M_out)
-    rows fwd [depth_acc; alpha] (`kcover_step_fwd` at the same camera).
+    rows fwd [depth_acc; alpha] (`kcover_step_fwd` at the same camera and
+    row0_px, the band's first global pixel row).
     CUDA tensor: the hand-written kernel pair (csrc/kcover_step.cu
     kcover_step_bwd_kernel + the fixed-order block reduction, which
     replace the Pallas _kcover_step_bwd_kernel; bound by bytes — one sweep
@@ -523,7 +557,7 @@ def kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, fwd=None):
     None)."""
     if not kbuf.is_cuda:
         return _kcover_step_bwd_plain(kbuf, cam, n_ty, n_tx, near, far,
-                                      g_d, g_a, fwd)
+                                      g_d, g_a, fwd, row0_px)
     k_cover, m_out = _check_step_args(kbuf, cam)
     kernels.require(g_d, "g_d", (m_out,), device=kbuf.device)
     kernels.require(g_a, "g_a", (m_out,), device=kbuf.device)
@@ -538,7 +572,8 @@ def kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, fwd=None):
     err = lib.gsl_kcover_step_bwd(
         cam.data_ptr(), kbuf.data_ptr(), fwd.data_ptr(), g_d.data_ptr(),
         g_a.data_ptr(), scratch.data_ptr(), out.data_ptr(), k_cover, m_out,
-        n_tx, float(near), float(far), n_blocks, kernels.stream_ptr())
+        n_tx, float(row0_px), float(near), float(far), n_blocks,
+        kernels.stream_ptr())
     kernels.check(err, "kcover_step_bwd")
     kcover_step_bwd.launches += 1
     return out
@@ -553,42 +588,55 @@ class _RenderKcover(torch.autograd.Function):
     4..15 filled."""
 
     @staticmethod
-    def forward(ctx, kbuf, cam, n_ty, n_tx, near, far):
+    def forward(ctx, kbuf, cam, n_ty, n_tx, near, far, row0_px):
         cam_c = cam.detach().contiguous()
-        out = kcover_step_fwd(kbuf, cam_c, n_ty, n_tx, near, far)
+        out = kcover_step_fwd(kbuf, cam_c, n_ty, n_tx, near, far, row0_px)
         ctx.save_for_backward(kbuf, cam_c, out)
-        ctx.dims = (n_ty, n_tx, near, far)
+        ctx.dims = (n_ty, n_tx, near, far, row0_px)
         return (unscramble_image(out[0], n_ty, n_tx),
                 unscramble_image(out[1], n_ty, n_tx))
 
     @staticmethod
     def backward(ctx, gd_img, ga_img):
         kbuf, cam, out = ctx.saved_tensors
-        n_ty, n_tx, near, far = ctx.dims
+        n_ty, n_tx, near, far, row0_px = ctx.dims
         g_d = scramble_image(gd_img, n_ty, n_tx).contiguous()
         g_a = scramble_image(ga_img, n_ty, n_tx).contiguous()
-        d = kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, out)
-        return None, _d_cam(d), None, None, None, None
+        d = kcover_step_bwd(kbuf, cam, n_ty, n_tx, near, far, g_d, g_a, out,
+                            row0_px)
+        return None, _d_cam(d), None, None, None, None, None
 
 
-def render_kcover(kbuf, cam, n_ty: int, n_tx: int, near: float, far: float):
+def render_kcover(kbuf, cam, n_ty: int, n_tx: int, near: float, far: float,
+                  row0_px=0.0):
     """Depth+alpha render from a K-cover buffer, differentiable w.r.t. the
-    cam vector (hand-written backward). Returns (depth_acc (hp, wp),
-    alpha (hp, wp))."""
-    return _RenderKcover.apply(kbuf, cam, n_ty, n_tx, near, far)
+    cam vector (hand-written backward). row0_px: the global y of the
+    buffer's first pixel row (nonzero for a band of a tile mesh,
+    parallel/sharded.py). Returns (depth_acc (hp, wp), alpha (hp, wp))."""
+    return _RenderKcover.apply(kbuf, cam, n_ty, n_tx, near, far,
+                               float(row0_px))
 
 
 def render_tracking_depth_kcover(viewmat, K, width: int, height: int,
                                  kbuf, near: float = 1e-2,
-                                 far: float = 1e10):
+                                 far: float = 1e10, mesh=None):
     """Normalized depth + alpha from a K-cover buffer, cropped to
-    (height, width); differentiable w.r.t. viewmat."""
+    (height, width); differentiable w.r.t. viewmat. With a TileMesh, kbuf
+    is the pixel-banded buffer of build_kcover_buffer(mesh=) (n_ty padded
+    to the band count)."""
     from .binning import TILE_H, TILE_W
 
     n_ty = -(-height // TILE_H)
     n_tx = -(-width // TILE_W)
     cam = cam_vector(viewmat, K, width, height)
-    d_acc, alpha = render_kcover(kbuf, cam, n_ty, n_tx, near, far)
+    if mesh is None:
+        d_acc, alpha = render_kcover(kbuf, cam, n_ty, n_tx, near, far)
+    else:
+        from ..parallel.sharded import _check_mesh, sharded_kcover_render
+
+        d = _check_mesh(mesh)
+        d_acc, alpha = sharded_kcover_render(
+            kbuf, cam, -(-n_ty // d) * d, n_tx, mesh, near, far)
     d_acc = d_acc[:height, :width]
     alpha = alpha[:height, :width]
     depth = d_acc / alpha.clamp_min(1e-10)

@@ -468,15 +468,26 @@ def rasterize_tiles(
 ):
     """Tile-binned render. Returns (image (H, W, C+1), alpha (H, W)); the
     last image channel is the UNNORMALIZED accumulated depth (the caller
-    divides by alpha, ops/rasterize.py)."""
+    divides by alpha, ops/rasterize.py). With a TileMesh
+    (parallel/sharded.py) the tile rows composite in bands over its
+    devices (n_ty padded to the band count) and the record gradients are
+    summed in band order."""
     if mesh is not None:
-        raise NotImplementedError(
-            "rasterize_tiles(mesh=...): tile-row bands over several devices "
-            "(parallel/sharded.py) are not ported yet (ROADMAP item 17)")
+        from ..parallel.sharded import (
+            _check_mesh, _pad_starts, sharded_composite,
+        )
+
+        d = _check_mesh(mesh)
     packed, meta, binning = pack_slots(
         mean2d, conic, depth, opacity, colors, valid, radius, width, height)
-    r, g, b, d_acc, alpha = composite_tiles(
-        packed, meta, binning.n_tiles_y, binning.n_tiles_x)
+    n_ty, n_tx = binning.n_tiles_y, binning.n_tiles_x
+    if mesh is None:
+        r, g, b, d_acc, alpha = composite_tiles(packed, meta, n_ty, n_tx)
+    else:
+        n_ty_pad = -(-n_ty // d) * d  # padded rows are empty tiles
+        starts = _pad_starts(meta[1:], (n_ty_pad - n_ty) * n_tx)
+        r, g, b, d_acc, alpha = sharded_composite(packed, starts, n_ty_pad,
+                                                  n_tx, mesh)
     if colors.shape[1] == 0:
         image = d_acc[:height, :width, None]
     else:

@@ -146,7 +146,7 @@ def _select(run, new, old):
 
 
 def _render_general_depth(scene, viewmat, K, width, height, config,
-                          backend):
+                          backend, mesh=None):
     """Expected depth (H, W) of the general rasterizer, RGB+ED mode."""
     from ..ops.rasterize import rasterize
 
@@ -155,8 +155,26 @@ def _render_general_depth(scene, viewmat, K, width, height, config,
         scene.sh_coeffs, viewmat, K, width, height,
         sh_degree=config.sh_degree, near_plane=config.near_plane,
         far_plane=config.far_plane, render_mode="RGB+ED", backend=backend,
+        mesh=mesh,
     )
     return render[..., 3]
+
+
+def _check_mesh_device(mesh, dev):
+    """Raise unless the mesh's first device is `dev`: the image, the loss
+    and Adam live there."""
+    from ..parallel.sharded import _check_mesh
+
+    _check_mesh(mesh)
+
+    def norm(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    if norm(mesh.device) != norm(dev):
+        raise ValueError(f"the mesh's first device {mesh.device} is not the "
+                         f"tracking device {dev}")
 
 
 def _pose_step(render_depth, pose, adam_q, adam_t, step, depth_gt, config,
@@ -192,6 +210,7 @@ def optimize_pose(
     config: TrackingConfig = TrackingConfig(),
     backend: str = "fused",
     device=DEFAULT_DEVICE,
+    mesh=None,
 ) -> PairResult:
     """Optimize the camera pose of one frame pair on `device`.
 
@@ -201,7 +220,13 @@ def optimize_pose(
     says, with config.compact its probe + compaction at every rebuild.
     backend "pallas" / "reference": the general rasterizer (the tiled
     hand-written kernels / the dense oracle), rendered in RGB+ED mode with
-    config.sh_degree; PairResult.rebuilds == selects == 0."""
+    config.sh_degree; PairResult.rebuilds == selects == 0.
+
+    mesh: a TileMesh (parallel/sharded.py) whose first device is `device`:
+    every render runs in macro-tile-row bands over its devices (the
+    K-cover buffer is selected per band) and the full image, the loss and
+    Adam stay on `device`. Compaction is off under a mesh, as in the JAX
+    package."""
     general = backend in ("pallas", "reference")
     if not general and backend != "fused":
         raise ValueError(f"unknown backend {backend!r}")
@@ -224,6 +249,8 @@ def optimize_pose(
     )
 
     dev = resolve_device(device)
+    if mesh is not None:
+        _check_mesh_device(mesh, dev)
     scene = GaussianScene(*(as_f32(a, dev) for a in scene))
     init_c2w = as_f32(init_c2w, dev)
     depth_gt = as_f32(depth_gt, dev)
@@ -233,7 +260,7 @@ def optimize_pose(
     near, far = config.near_plane, config.far_plane
     use_subtile = config.subtile
     use_kcover = config.kcover > 0 and use_subtile and not general
-    do_compact = config.compact and not use_subtile
+    do_compact = config.compact and mesh is None and not use_subtile
 
     def make_slots(viewmat):
         """(slot3d, meta, z_min, overflow) at `viewmat`; overflow is only
@@ -266,7 +293,7 @@ def optimize_pose(
         vm = invert_se3(pose.to_c2w())
         return build_kcover_buffer(
             slot3d, slot_meta, cam_vector(vm, K, width, height),
-            n_ty, n_tx, near, far, k_cover=config.kcover,
+            n_ty, n_tx, near, far, k_cover=config.kcover, mesh=mesh,
         )
 
     gamma = config.lr_decay_total ** (1.0 / config.max_steps)
@@ -299,16 +326,18 @@ def optimize_pose(
         full-tile paths, or None on the general path."""
         if general:
             return _render_general_depth(scene, viewmat, K, width, height,
-                                         config, backend)
+                                         config, backend, mesh)
         if use_kcover:
             depth, _alpha = render_tracking_depth_kcover(
-                viewmat, K, width, height, buf, near, far)
+                viewmat, K, width, height, buf, near, far, mesh=mesh)
         elif use_subtile:
             depth, _alpha = render_tracking_depth_subtile(
-                viewmat, K, width, height, buf[0], buf[1], near, far)
+                viewmat, K, width, height, buf[0], buf[1], near, far,
+                mesh=mesh)
         else:
             depth, _alpha = render_tracking_depth(
-                viewmat, K, width, height, buf[0], buf[1], near, far)
+                viewmat, K, width, height, buf[0], buf[1], near, far,
+                mesh=mesh)
         return depth
 
     def body_inner(c: _Carry, buf) -> _Carry:
@@ -466,16 +495,20 @@ def optimize_pose_recorded(
     config: TrackingConfig = TrackingConfig(),
     backend: str = "pallas",
     device=DEFAULT_DEVICE,
+    mesh=None,
 ) -> dict:
     """Debug variant of optimize_pose on the general rasterizer: a FIXED
     number of steps (no early stop, no best-pose bookkeeping), returning
     the per-step (n_steps,) series loss / depth_loss / silhouette_loss, the
     pose before each step (quat (n_steps, 4), trans (n_steps, 3)) and
-    final_pose — the single-pair diagnostic harness."""
+    final_pose — the single-pair diagnostic harness. mesh: as in
+    optimize_pose (the "pallas" backend renders in bands)."""
     if backend not in ("pallas", "reference"):
         raise ValueError(f"optimize_pose_recorded: backend {backend!r} is "
                          "not a general-rasterizer backend")
     dev = resolve_device(device)
+    if mesh is not None:
+        _check_mesh_device(mesh, dev)
     scene = GaussianScene(*(as_f32(a, dev) for a in scene))
     init_c2w = as_f32(init_c2w, dev)
     depth_gt = as_f32(depth_gt, dev)
@@ -488,7 +521,7 @@ def optimize_pose_recorded(
 
     def render_depth(viewmat):
         return _render_general_depth(scene, viewmat, K, width, height,
-                                     config, backend)
+                                     config, backend, mesh)
 
     series = {k: [] for k in names}
     for i in range(n_steps):

@@ -56,7 +56,9 @@ def test_package_layout_mirrors_the_reference():
                 "tracking/runner.py", "eval/metrics.py", "eval/logger.py",
                 "utils/checkpoint.py", "native/src/kdtree.h",
                 "data/traj.py", "eval/visualize.py", "eval/viewer.py",
-                "eval/lpips.py", "utils/profiling.py"):
+                "eval/lpips.py", "utils/profiling.py",
+                "parallel/__init__.py", "parallel/sharded.py",
+                "parallel/distributed.py"):
         assert (PKG / rel).exists(), rel
         assert (ROOT / "gsplatloc_tpu" / rel).exists(), rel
     # the counterpart of ops/rasterize_pallas.py, named for what it is here
@@ -310,6 +312,12 @@ def test_entry_point_signature_matches_its_c_parameters(name):
     text = "".join(p.read_text() for p in kernels.sources())
     head = text.split(f'extern "C" int {name}(', 1)[1].split(")", 1)[0]
     assert len(kernels._SIGNATURES[name]) == head.count(",") + 1
+    if name in ("gsl_kcover_step_fwd", "gsl_kcover_step_bwd"):
+        # K1/K2 take the band's first pixel row (a float) after n_tx
+        params = [p.split()[-1].lstrip("*") for p in head.split(",")]
+        at = params.index("row0_px")
+        assert params[at - 1] == "n_tx"
+        assert kernels._SIGNATURES[name][at] is kernels._F
 
 
 def test_subtile_backward_wrappers_refuse_what_the_kernels_do_not_take():

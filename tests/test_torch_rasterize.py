@@ -208,9 +208,12 @@ def test_gather_slots_matches_reference(packed):
 
 
 def test_rasterize_tiles_refuses_a_mesh():
+    """A mesh must be a TileMesh (parallel/sharded.py); anything else is
+    refused before any work (the banded render itself is held in
+    tests/test_torch_sharded.py)."""
     n = 4
     z = torch.zeros((n, 2))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="TileMesh"):
         trt.rasterize_tiles(z, torch.zeros((n, 3)), torch.ones(n),
                             torch.ones(n), torch.zeros((n, 3)),
                             torch.ones(n, dtype=torch.bool),

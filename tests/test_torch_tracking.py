@@ -185,28 +185,7 @@ def _unported(name, pair):
                              pair["depth_gt"], pair["K"], W, H,
                              device="cpu", **args)
 
-    def pallas_mesh():
-        from gsplatloc_tpu_torch.ops.rasterize import rasterize
-
-        s = pair["scene_t"]
-        rasterize(s.means, s.quats, s.scales, s.opacities, s.sh_coeffs,
-                  torch.eye(4), torch.as_tensor(pair["K"]), W, H,
-                  backend="pallas", mesh=object())
-
-    def fulltile_mesh():
-        from gsplatloc_tpu_torch.ops.fused_tracking import (
-            build_slot_buffer, render_tracking_depth,
-        )
-
-        K = torch.as_tensor(pair["K"])
-        slot, meta, _ = build_slot_buffer(pair["scene_t"], torch.eye(4), K,
-                                          W, H, 1e-2, 1e10)
-        render_tracking_depth(torch.eye(4), K, W, H, slot, meta,
-                              mesh=object())
-
     return {
-        "pallas": pallas_mesh,
-        "fulltile_mesh": fulltile_mesh,
         "cli_render": lambda: cli.main(["render", "--dataset", "Synthetic"]),
         "subtile_false": opt,
         "panel_every": lambda: SequenceRunner(
@@ -215,17 +194,14 @@ def _unported(name, pair):
     }[name]
 
 
-@pytest.mark.parametrize("name", ["pallas", "fulltile_mesh", "cli_render",
-                                  "panel_every"])
+@pytest.mark.parametrize("name", ["cli_render", "panel_every"])
 def test_unported_paths_raise(pair, name, monkeypatch):
-    """The multi-device mesh of the general and the full-tile renders is a
-    later slice: it raises NotImplementedError. The render fly-through and
-    the runner's panels are ported and raise only where they cannot run:
+    """Every path is ported (the multi-device mesh too, held in
+    tests/test_torch_sharded.py). These raise only where they cannot run:
     `cli render` on its default device with no card, the runner's panels
     with no matplotlib (hidden here), at construction."""
     exc, match = {"cli_render": (RuntimeError, "cuda"),
-                  "panel_every": (ImportError, "matplotlib")}.get(
-        name, (NotImplementedError, "not ported|ported"))
+                  "panel_every": (ImportError, "matplotlib")}[name]
     if name == "cli_render" and torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     if name == "panel_every":
