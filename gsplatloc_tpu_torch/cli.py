@@ -20,7 +20,10 @@ Usage:
 
 `track` runs on the CUDA device unless `--device cpu` is given (the plain
 PyTorch versions of the kernels; slow beyond small images) and writes one
-run directory per room plus `res.json` under --run-dir. `icp` runs the
+run directory per room plus `res.json` under --run-dir; with `--profile
+DIR` (and a few `--max-pairs`) it runs under torch.profiler, writes
+DIR/trace.json and prints the card's busy share and its idle seconds by
+the innermost `gsl.*` span open when each gap began. `icp` runs the
 classical baselines (tracking/icp.py): the registrations on the host, the
 back-projection and HYBRID's dense odometry on the device; one run
 directory per room and method plus the resume ledger `finished.jsonl`.
@@ -32,6 +35,7 @@ the general rasterizer (on the card unless `--device cpu`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from pathlib import Path
 
@@ -57,6 +61,7 @@ def cmd_track(args):
     from .eval.metrics import set_random_seed
     from .opt.tracking import TrackingConfig
     from .tracking.runner import SequenceRunner
+    from .utils.profiling import TRACE_FILE, profile_trace
 
     set_random_seed(args.seed)
 
@@ -77,35 +82,58 @@ def cmd_track(args):
         rooms = shard_scenes(rooms)
     results = {args.dataset: {}}
     run_root = Path(args.run_dir)
-    for room in rooms:
-        kwargs = {}
-        if args.dataset == "Synthetic":
-            kwargs = dict(n_frames=args.frames, height=args.height,
-                          width=args.width, seed=args.seed)
-        elif args.dataset == "ReplicaFixture":
-            kwargs = dict(frames=args.frames, height=args.height,
-                          width=args.width)
-        elif args.data_root:
-            kwargs = dict(root=args.data_root)
-        runner = SequenceRunner(
-            data_set=args.dataset, scene_name=room, normalize=True,
-            config=cfg, backend=args.backend,
-            run_dir=run_root / (room or "synthetic"),
-            max_pairs=args.max_pairs, algorithm=args.algorithm,
-            panel_every=args.panel_every, pcd_every=args.pcd_every,
-            knn_method=args.knn, device=args.device,
-            **kwargs,
-        )
-        res = runner.train(progress=not args.quiet,
-                           prefetch=not args.no_prefetch)
-        results[args.dataset][room or "synthetic"] = {
-            args.algorithm: {"eT": res.eT, "eR": res.eR}
-        }
-        print(f"{args.dataset}/{room}: ATE-RMSE {res.ate_rmse*100:.5f} cm  "
-              f"AAE-RMSE {res.aae_rmse:.5f} deg  "
-              f"({res.pose_steps_per_s:.0f} pose-steps/s)")
+    with (profile_trace(args.profile, device=args.device) if args.profile
+          else contextlib.nullcontext()):
+        for room in rooms:
+            kwargs = {}
+            if args.dataset == "Synthetic":
+                kwargs = dict(n_frames=args.frames, height=args.height,
+                              width=args.width, seed=args.seed)
+            elif args.dataset == "ReplicaFixture":
+                kwargs = dict(frames=args.frames, height=args.height,
+                              width=args.width)
+            elif args.data_root:
+                kwargs = dict(root=args.data_root)
+            runner = SequenceRunner(
+                data_set=args.dataset, scene_name=room, normalize=True,
+                config=cfg, backend=args.backend,
+                run_dir=run_root / (room or "synthetic"),
+                max_pairs=args.max_pairs, algorithm=args.algorithm,
+                panel_every=args.panel_every, pcd_every=args.pcd_every,
+                knn_method=args.knn, device=args.device,
+                **kwargs,
+            )
+            res = runner.train(progress=not args.quiet,
+                               prefetch=not args.no_prefetch)
+            results[args.dataset][room or "synthetic"] = {
+                args.algorithm: {"eT": res.eT, "eR": res.eR}
+            }
+            print(f"{args.dataset}/{room}: "
+                  f"ATE-RMSE {res.ate_rmse*100:.5f} cm  "
+                  f"AAE-RMSE {res.aae_rmse:.5f} deg  "
+                  f"({res.pose_steps_per_s:.0f} pose-steps/s)")
     write_res_json(results, run_root / "res.json")
     print(f"wrote {run_root/'res.json'}")
+    if args.profile:
+        print_idle_table(Path(args.profile) / TRACE_FILE)
+
+
+def print_idle_table(trace_path):
+    """The trace's device busy share over its `gsl.pair` spans and the idle
+    seconds by the innermost `gsl.*` span of the main thread open when
+    each gap began (no busy share where the trace holds no device work)."""
+    from .utils.profiling import idle_by_span, trace_events
+
+    events = trace_events(trace_path)
+    busy, window, idle = idle_by_span(events)
+    head = f"{trace_path}: {window:.3f} s of gsl.pair spans"
+    if busy > 0:
+        head += f", device busy {busy:.3f} s ({100.0 * busy / window:.2f} %)"
+    print(head)
+    print(f"{'idle by span':<16} {'s':>10} {'% of idle':>10}")
+    total = sum(idle.values()) or 1.0
+    for name, sec in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"{name:<16} {sec:>10.4f} {100.0 * sec / total:>10.2f}")
 
 
 def cmd_tables(args):
@@ -367,6 +395,10 @@ def build_parser():
                    help="several processes: this process tracks "
                         "rooms[i::P] of the process group set up by "
                         "parallel.initialize(); one process: all rooms")
+    t.add_argument("--profile", default=None, metavar="DIR",
+                   help="run under torch.profiler, write DIR/trace.json "
+                        "and print the device's idle time by gsl.* span "
+                        "(give a few --max-pairs)")
     t.set_defaults(fn=cmd_track)
 
     tb = sub.add_parser("tables", help="res.json -> markdown tables")

@@ -37,6 +37,13 @@ decisions live in device tensors. The host reads back ONCE per segment of
 segment's select gate has tripped are computed and masked out, so the
 results equal a per-step check while the step kernels are launched for
 every enqueued step.
+
+Spans (utils/profiling.py: profiler ranges while one records, host seconds
+always): `gsl.segment` around each segment, `gsl.rebuild` / `gsl.select`
+around each build of the slot / cover buffer, per launched step
+`gsl.step` with `gsl.render`, `gsl.loss`, `gsl.backward`, `gsl.adam`
+inside it, and `gsl.read` around a segment's one host read. Their seconds
+and the launched steps and segments come back in the PairResult.
 """
 
 from __future__ import annotations
@@ -50,7 +57,12 @@ from ..losses import tracking_loss
 from ..models.gaussians import GaussianScene
 from ..models.pose import PoseState
 from ..ops.lie import invert_se3
+from ..utils.profiling import span
 from .adam import AdamState, adam_init, adam_step, exponential_lr
+
+# the loop's host-seconds keys (PairResult.host_s), one per span
+HOST_KEYS = ("step", "render", "loss", "backward", "adam", "read", "rebuild",
+             "select")
 
 
 class TrackingConfig(NamedTuple):
@@ -121,6 +133,13 @@ class PairResult(NamedTuple):
     selects: int = 0
     # True iff any rebuild's live slot count exceeded the slot_budget prefix
     slot_overflow: bool = False
+    # steps enqueued (every segment's range; >= steps_run, the steps after
+    # a segment's select gate tripped are masked out)
+    launched: int = 0
+    # segments, each ended by one host read
+    segments: int = 0
+    # host seconds of the loop by HOST_KEYS key (the spans' `into`)
+    host_s: dict | None = None
 
 
 class _Carry(NamedTuple):
@@ -178,18 +197,22 @@ def _check_mesh_device(mesh, dev):
 
 
 def _pose_step(render_depth, pose, adam_q, adam_t, step, depth_gt, config,
-               gamma):
+               gamma, host_s=None):
     """One tracking step: the depth render_depth(viewmat) at `pose`, the
     masked tracking loss, its gradient w.r.t. the pose leaves, and one Adam
-    update of each leaf at its decayed learning rate. Returns (loss,
-    depth_loss, silhouette_loss, new pose, adam_q, adam_t)."""
-    quat = pose.quat.detach().requires_grad_(True)
-    trans = pose.trans.detach().requires_grad_(True)
-    depth = render_depth(invert_se3(PoseState(quat, trans).to_c2w()))
-    tl = tracking_loss(depth, depth_gt, config.depth_lambda,
-                       config.normal_lambda)
-    g_q, g_t = torch.autograd.grad(tl.total, (quat, trans))
-    with torch.no_grad():
+    update of each leaf at its decayed learning rate, each in its span
+    (host seconds into `host_s`). Returns (loss, depth_loss,
+    silhouette_loss, new pose, adam_q, adam_t)."""
+    with span("gsl.render", host_s):
+        quat = pose.quat.detach().requires_grad_(True)
+        trans = pose.trans.detach().requires_grad_(True)
+        depth = render_depth(invert_se3(PoseState(quat, trans).to_c2w()))
+    with span("gsl.loss", host_s):
+        tl = tracking_loss(depth, depth_gt, config.depth_lambda,
+                           config.normal_lambda)
+    with span("gsl.backward", host_s):
+        g_q, g_t = torch.autograd.grad(tl.total, (quat, trans))
+    with span("gsl.adam", host_s), torch.no_grad():
         new_q, adam_q = adam_step(
             pose.quat, g_q, adam_q, step,
             exponential_lr(config.quat_lr, gamma, step), config.quat_wd)
@@ -340,10 +363,12 @@ def optimize_pose(
                 mesh=mesh)
         return depth
 
+    host_s = dict.fromkeys(HOST_KEYS, 0.0)
+
     def body_inner(c: _Carry, buf) -> _Carry:
         loss, dl, sl, pose, adam_q, adam_t = _pose_step(
             lambda vm: render_depth(vm, buf), c.pose, c.adam_q, c.adam_t,
-            c.step, depth_gt, config, gamma)
+            c.step, depth_gt, config, gamma, host_s)
 
         # best-loss bookkeeping (after warmup)
         track = c.step >= config.warmup_steps + 1
@@ -383,9 +408,13 @@ def optimize_pose(
             slot3d = slot_meta = rb_zmin = None
             overflow = torch.zeros((), dtype=torch.bool, device=dev)
         else:
-            slot3d, slot_meta, rb_zmin, overflow = make_slots(
-                invert_se3(init_c2w))
-        kbuf = make_kbuf(slot3d, slot_meta, init_pose) if use_kcover else None
+            with span("gsl.rebuild", host_s):
+                slot3d, slot_meta, rb_zmin, overflow = make_slots(
+                    invert_se3(init_c2w))
+        kbuf = None
+        if use_kcover:
+            with span("gsl.select", host_s):
+                kbuf = make_kbuf(slot3d, slot_meta, init_pose)
     inf = torch.full((), float("inf"), dtype=F32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     c = _Carry(
@@ -405,71 +434,84 @@ def optimize_pose(
     host_step = host_counter = 0
     do_resort = do_select = False
     seg_len = max(int(config.resort_every), 1)
+    n_launched = n_segments = 0
 
     while host_step < config.max_steps and (
             not config.early_stop or host_counter < config.patience):
-        # segment boundary: at most ONE rebuild and ONE re-selection, both
-        # decided on the device at the end of the previous segment
-        with torch.no_grad():
-            if do_resort:
-                slot3d, slot_meta, rb_zmin, new_ovf = make_slots(
-                    invert_se3(c.pose.to_c2w()))
-                overflow = overflow | new_ovf
-                rb_pose = c.pose
-                n_rebuilds += 1
-            if do_select:
-                # a binning rebuild always forces re-selection (the cover
-                # must be consistent with the fresh depth order)
-                kbuf = make_kbuf(slot3d, slot_meta, c.pose)
-                sel_pose = c.pose
-                n_selects += 1
-        buf = kbuf if use_kcover else None if general else (slot3d, slot_meta)
-
-        # enqueue the whole segment without reading anything back; `run`
-        # carries the inner loop condition on the device and masks the
-        # steps after it turned false
-        run = torch.ones((), dtype=torch.bool, device=dev)
-        for i in range(min(seg_len, config.max_steps - host_step)):
+        with span("gsl.segment"):
+            # segment boundary: at most ONE rebuild and ONE re-selection,
+            # both decided on the device at the end of the previous segment
             with torch.no_grad():
-                if config.early_stop:
-                    run = run & (c.counter < config.patience)
-                if use_kcover and i > 0:
-                    # selection staleness gate INSIDE the loop condition;
-                    # the first step of a segment always runs
-                    run = run & (
-                        moved_px(c.pose, sel_pose, rb_zmin)
-                        <= config.select_motion_px
+                if do_resort:
+                    with span("gsl.rebuild", host_s):
+                        slot3d, slot_meta, rb_zmin, new_ovf = make_slots(
+                            invert_se3(c.pose.to_c2w()))
+                    overflow = overflow | new_ovf
+                    rb_pose = c.pose
+                    n_rebuilds += 1
+                if do_select:
+                    # a binning rebuild always forces re-selection (the
+                    # cover must be consistent with the fresh depth order)
+                    with span("gsl.select", host_s):
+                        kbuf = make_kbuf(slot3d, slot_meta, c.pose)
+                    sel_pose = c.pose
+                    n_selects += 1
+            buf = (kbuf if use_kcover else None if general
+                   else (slot3d, slot_meta))
+
+            # enqueue the whole segment without reading anything back;
+            # `run` carries the inner loop condition on the device and
+            # masks the steps after it turned false
+            run = torch.ones((), dtype=torch.bool, device=dev)
+            n_seg = min(seg_len, config.max_steps - host_step)
+            for i in range(n_seg):
+                with span("gsl.step", host_s):
+                    with torch.no_grad():
+                        if config.early_stop:
+                            run = run & (c.counter < config.patience)
+                        if use_kcover and i > 0:
+                            # selection staleness gate INSIDE the loop
+                            # condition; a segment's first step always runs
+                            run = run & (
+                                moved_px(c.pose, sel_pose, rb_zmin)
+                                <= config.select_motion_px
+                                * gate_factor(c.coast_counter))
+                    new_c = body_inner(c, buf)
+                    with torch.no_grad():
+                        c = _select(run, new_c, c)
+            n_launched += n_seg
+            n_segments += 1
+
+            if general:
+                # no slot buffer, no gate: the host reads the two counters
+                with torch.no_grad(), span("gsl.read", host_s):
+                    host_step, host_counter = torch.stack(
+                        [c.step, c.counter]).tolist()
+                continue
+            with torch.no_grad():
+                resort_t = c.step > 0
+                if config.resort_motion_px > 0:
+                    resort_t = resort_t & (
+                        moved_px(c.pose, rb_pose, rb_zmin)
+                        > config.resort_motion_px
                         * gate_factor(c.coast_counter))
-            new_c = body_inner(c, buf)
-            with torch.no_grad():
-                c = _select(run, new_c, c)
-
-        if general:
-            # no slot buffer, no gate: the host reads the two counters only
-            with torch.no_grad():
-                host_step, host_counter = torch.stack(
-                    [c.step, c.counter]).tolist()
-            continue
-        with torch.no_grad():
-            resort_t = c.step > 0
-            if config.resort_motion_px > 0:
-                resort_t = resort_t & (
-                    moved_px(c.pose, rb_pose, rb_zmin)
-                    > config.resort_motion_px * gate_factor(c.coast_counter))
-            if not use_kcover:
-                select_t = torch.zeros((), dtype=torch.bool, device=dev)
-            elif config.select_motion_px > 0:
-                select_t = resort_t | (
-                    moved_px(c.pose, sel_pose, rb_zmin)
-                    > config.select_motion_px * gate_factor(c.coast_counter))
-            else:
-                select_t = resort_t | (c.step > 0)
-            # THE host read of this segment (one device->host copy): the
-            # step and patience counters for the outer loop condition and
-            # the two gate decisions for the next boundary
-            host_step, host_counter, do_resort, do_select = torch.stack([
-                c.step, c.counter, resort_t.to(torch.int32),
-                select_t.to(torch.int32)]).tolist()
+                if not use_kcover:
+                    select_t = torch.zeros((), dtype=torch.bool, device=dev)
+                elif config.select_motion_px > 0:
+                    select_t = resort_t | (
+                        moved_px(c.pose, sel_pose, rb_zmin)
+                        > config.select_motion_px
+                        * gate_factor(c.coast_counter))
+                else:
+                    select_t = resort_t | (c.step > 0)
+                # THE host read of this segment (one device->host copy):
+                # the step and patience counters for the outer loop
+                # condition and the two gate decisions for the next boundary
+                with span("gsl.read", host_s):
+                    host_step, host_counter, do_resort, do_select = (
+                        torch.stack([c.step, c.counter,
+                                     resort_t.to(torch.int32),
+                                     select_t.to(torch.int32)]).tolist())
 
     return PairResult(
         best_pose=c.best_pose,
@@ -481,6 +523,9 @@ def optimize_pose(
         rebuilds=n_rebuilds,
         selects=n_selects,
         slot_overflow=bool(overflow),
+        launched=n_launched,
+        segments=n_segments,
+        host_s=host_s,
     )
 
 

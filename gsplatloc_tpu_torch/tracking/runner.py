@@ -13,6 +13,11 @@ assembly, the depth-target render, the scene build, the optimization —
 stays on the main thread: a second thread enqueuing work on the same
 stream would race the main thread's launches and the kernels' launch
 counters. Results are bitwise equal with and without prefetch.
+
+Each stage is a span of utils/profiling.py (`gsl.pair` around a pair,
+`gsl.wait`, `gsl.parse`, `gsl.scene`, `gsl.optimize`, `gsl.collect` inside
+it, `gsl.decode` and `gsl.knn` on the worker, each tagged with its pair
+index); their host seconds fill `SequenceResult.stage_s`.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..eval.logger import ExperimentLogger
 from ..eval.metrics import rmse, rotation_error_deg, translation_error
 from ..models.gaussians import scene_from_point_cloud
 from ..opt.tracking import TrackingConfig, optimize_pose
+from ..utils.profiling import span
 
 # pairs whose host prepare the prefetch worker runs ahead of the main thread
 PREFETCH_DEPTH = 2
@@ -47,7 +53,8 @@ class SequenceResult:
     slot_overflow: list = field(default_factory=list)  # 0 / 1
     poses_est: list = field(default_factory=list)  # (4,4) per pair
     wall_s: float = 0.0
-    # cumulative per-stage wall clock (seconds over the whole run):
+    # cumulative per-stage wall clock (seconds over the whole run), one
+    # key per span of the same name:
     #   decode / knn — host prepare (on the prefetch worker when prefetch
     #     is on, so their sum can exceed what they cost on the critical
     #     path);
@@ -56,7 +63,13 @@ class SequenceResult:
     #   wait — main-thread time blocked on the prefetch worker (the part
     #     of host prepare the pipeline did not hide);
     #   optimize — main-thread time in optimize_pose;
-    #   collect — host readout + logging, figures and checkpoints.
+    #   collect — host readout + logging, figures and checkpoints;
+    #   step / render / loss / backward / adam / read / rebuild / select —
+    #     optimize_pose's own spans (PairResult.host_s), inside optimize.
+    # Beside the seconds it holds two counts, summed over the pairs:
+    #   launched — the steps optimize_pose enqueued (>= sum(steps));
+    #   segments — its host reads, one a segment.
+    # (stage_s is the one record the benchmark sums key by key.)
     stage_s: dict = field(default_factory=dict)
 
     @property
@@ -150,14 +163,13 @@ class SequenceRunner:
         """Host part of pair i's prepare: decode both frames, then the exact
         kNN of both raw clouds (cached per frame by the parser). Touches
         no device. Returns (tar, src, knn_tar, knn_src, stages)."""
-        t0 = time.perf_counter()
-        tar = self.parser.frame(i)
-        src = self.parser.frame(i + 1)
-        t1 = time.perf_counter()
-        knn_tar = self.parser.knn_for_frame(i)
-        knn_src = self.parser.knn_for_frame(i + 1)
-        t2 = time.perf_counter()
-        stages = {"decode": t1 - t0, "knn": t2 - t1}
+        stages = {}
+        with span("gsl.decode", stages, args=i):
+            tar = self.parser.frame(i)
+            src = self.parser.frame(i + 1)
+        with span("gsl.knn", stages, args=i):
+            knn_tar = self.parser.knn_for_frame(i)
+            knn_src = self.parser.knn_for_frame(i + 1)
         # observability of the scale-init robust clamp: the number of
         # splats it caps (0 on healthy scenes)
         if knn_tar is not None:
@@ -168,19 +180,17 @@ class SequenceRunner:
         """Device part of the prepare: pair assembly (world transform, PCA
         normalization, the depth-target render) and the scene build."""
         tar, src, knn_tar, knn_src, stages = host
-        t0 = time.perf_counter()
-        h, w = src.hw
-        data = self.parser.pair_from_frames(tar, src, knn_src)
-        self._sync()
-        t1 = time.perf_counter()
-        scene = scene_from_point_cloud(
-            data.tar_points, data.colors, grid_shape=(h, w),
-            knn_sq_dists=knn_tar, knn_method=self.knn_method,
-            device=self.device,
-        )
-        self._sync()
-        t2 = time.perf_counter()
-        stages = dict(stages, parse=t1 - t0, scene=t2 - t1)
+        with span("gsl.parse", stages):
+            h, w = src.hw
+            data = self.parser.pair_from_frames(tar, src, knn_src)
+            self._sync()
+        with span("gsl.scene", stages):
+            scene = scene_from_point_cloud(
+                data.tar_points, data.colors, grid_shape=(h, w),
+                knn_sq_dists=knn_tar, knn_method=self.knn_method,
+                device=self.device,
+            )
+            self._sync()
         return data, scene, (h, w), stages
 
     def _sync(self):
@@ -314,48 +324,46 @@ class SequenceRunner:
             pending = None  # (i, data, out): optimized, not yet read
             acc = res.stage_s
             for i in range(start_pair, n_pairs):
-                tw0 = time.perf_counter()
-                if prefetch:
-                    host = futs.popleft().result()
-                    acc["wait"] = acc.get("wait", 0.0) + (
-                        time.perf_counter() - tw0)
-                    if i + depth < n_pairs:
-                        futs.append(
-                            executor.submit(self._prepare_host, i + depth))
-                else:
-                    host = self._prepare_host(i)
-                data, scene, (h, w), stages = self._prepare_device(host)
-                clamped = stages.pop("clamped", 0)
-                res.clamped_scales.append(clamped)
-                if clamped:
-                    self.logger.log(i, clamped_scales=int(clamped))
-                for k, v in stages.items():
-                    acc[k] = acc.get(k, 0.0) + v
-                to0 = time.perf_counter()
-                out = optimize_pose(
-                    scene, data.tar_c2w, data.src_depth, self.parser.K,
-                    w, h, config=self.config, backend=self.backend,
-                    device=self.device,
-                )
-                acc["optimize"] = acc.get("optimize", 0.0) + (
-                    time.perf_counter() - to0)
-                tc0 = time.perf_counter()
-                if prefetch:
-                    if pending is not None:
-                        self._collect_pair(*pending, res, progress, t_start,
-                                           wall_base, checkpoint_every)
-                    pending = (i, data, out)
-                else:  # strictly serial
-                    self._collect_pair(i, data, out, res, progress, t_start,
-                                       wall_base, checkpoint_every)
-                acc["collect"] = acc.get("collect", 0.0) + (
-                    time.perf_counter() - tc0)
+                with span("gsl.pair", args=i):
+                    if prefetch:
+                        with span("gsl.wait", acc):
+                            host = futs.popleft().result()
+                        if i + depth < n_pairs:
+                            futs.append(executor.submit(
+                                self._prepare_host, i + depth))
+                    else:
+                        host = self._prepare_host(i)
+                    data, scene, (h, w), stages = self._prepare_device(host)
+                    clamped = stages.pop("clamped", 0)
+                    res.clamped_scales.append(clamped)
+                    if clamped:
+                        self.logger.log(i, clamped_scales=int(clamped))
+                    for k, v in stages.items():
+                        acc[k] = acc.get(k, 0.0) + v
+                    with span("gsl.optimize", acc):
+                        out = optimize_pose(
+                            scene, data.tar_c2w, data.src_depth,
+                            self.parser.K, w, h, config=self.config,
+                            backend=self.backend, device=self.device,
+                        )
+                    for k, v in dict(out.host_s, launched=out.launched,
+                                     segments=out.segments).items():
+                        acc[k] = acc.get(k, 0) + v
+                    with span("gsl.collect", acc):
+                        if prefetch:
+                            if pending is not None:
+                                self._collect_pair(*pending, res, progress,
+                                                   t_start, wall_base,
+                                                   checkpoint_every)
+                            pending = (i, data, out)
+                        else:  # strictly serial
+                            self._collect_pair(i, data, out, res, progress,
+                                               t_start, wall_base,
+                                               checkpoint_every)
             if pending is not None:
-                tc0 = time.perf_counter()
-                self._collect_pair(*pending, res, progress, t_start,
-                                   wall_base, checkpoint_every)
-                acc["collect"] = acc.get("collect", 0.0) + (
-                    time.perf_counter() - tc0)
+                with span("gsl.collect", acc):
+                    self._collect_pair(*pending, res, progress, t_start,
+                                       wall_base, checkpoint_every)
         finally:
             if executor is not None:
                 executor.shutdown(wait=True)

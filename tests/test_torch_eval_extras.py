@@ -173,7 +173,6 @@ def test_time_block_and_timer_stats():
     assert st["count"] == 3 and 0.0 < st["min_s"] <= st["mean_s"]
     assert st["total_s"] == pytest.approx(3 * st["mean_s"])
     assert profiling.timer_stats("never") == {}
-    assert profiling.rays_per_sec(1000, 0.5) == 2000.0
     profiling.reset_timers()
     assert profiling.timer_stats("unit") == {}
 

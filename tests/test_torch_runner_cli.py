@@ -55,7 +55,9 @@ def test_runner_matches_reference_runner(tmp_path, kcover, max_pairs):
     np.testing.assert_allclose(rt.eT, rj.eT, rtol=0, atol=1e-4)
     np.testing.assert_allclose(rt.eR, rj.eR, rtol=0, atol=0.02)
     assert set(rt.stage_s) == {"wait", "decode", "knn", "parse", "scene",
-                               "optimize", "collect"}
+                               "optimize", "collect", "step", "render",
+                               "loss", "backward", "adam", "read", "rebuild",
+                               "select", "launched", "segments"}
 
 
 def test_sequence_runner_kcover0_recovers_pose(tmp_path):
