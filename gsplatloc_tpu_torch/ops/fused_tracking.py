@@ -243,13 +243,16 @@ def _pose_chain(pr, m0, m_x, m_y, m_xx, m_xy, m_yy, d_z_direct,
 
 def cam_vector(viewmat, K, width, height):
     """Pack the camera into the (18,) scalar vector the kernels consume.
-    Differentiable w.r.t. viewmat (autograd chains d_cam back through it)."""
+    Differentiable w.r.t. viewmat (autograd chains d_cam back through it).
+    The [width, height] pair is filled on the device, so that no host copy
+    (and no wait for the card) sits in a tracking step."""
+    wh = torch.full((2,), float(width), dtype=F32, device=viewmat.device)
+    wh[1:].fill_(float(height))
     return torch.cat([
         torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]),
         viewmat[:3, :3].reshape(-1),
         viewmat[:3, 3],
-        torch.tensor([float(width), float(height)], dtype=F32,
-                     device=viewmat.device),
+        wh,
     ]).to(F32)
 
 

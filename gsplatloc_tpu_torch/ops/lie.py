@@ -80,9 +80,10 @@ def construct_pose(rotation: torch.Tensor, translation: torch.Tensor) -> torch.T
     """Build (..., 4, 4) SE(3) from (..., 3, 3) R and (..., 3) t."""
     batch = rotation.shape[:-2]
     top = torch.cat([rotation, translation[..., None]], dim=-1)  # (...,3,4)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=rotation.dtype, device=rotation.device
-    ).expand(batch + (1, 4))
+    # the [0, 0, 0, 1] row made on the device: a tensor built from a host
+    # list is a copy the host waits for
+    bottom = rotation.new_zeros(batch + (1, 4))
+    bottom[..., 3:].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -30,20 +30,31 @@ kernels of ops/rasterize_tiles.py; "reference": the dense oracle), which
 projects, bins and renders the whole scene in RGB+ED mode every step and
 has no slot buffer and no gate.
 
-The reference runs this as one on-device while_loop; here it is an eager
-Python loop whose pose, Adam state, best-loss bookkeeping and the gate
-decisions live in device tensors. The host reads back ONCE per segment of
-`resort_every` steps, never once per step: steps enqueued after a
-segment's select gate has tripped are computed and masked out, so the
-results equal a per-step check while the step kernels are launched for
-every enqueued step.
+The reference runs this as one on-device while_loop; here it is a Python
+loop whose pose, Adam state, best-loss bookkeeping and the gate decisions
+live in device tensors. The host reads back ONCE per segment of
+`resort_every` steps, never once per step, and nothing inside a segment
+waits for the card: steps enqueued after a segment's select gate has
+tripped are computed and masked out, so the results equal a per-step
+check while the step kernels are launched for every enqueued step.
+
+The K-cover path on one device runs each launched step as stages over
+fixed tensors (`_KcoverSteps`): K1, the loss and its gradient to the
+image (B), K2, then the pose VJP, Adam and the bookkeeping (C). On a
+CUDA device B and C are captured once as CUDA graphs and replayed, with
+K1 and K2 launched between the replays; on the CPU the same stages run
+eagerly. Every other path (kcover = 0, full-tile, general, bands over a
+mesh) runs `_pose_step`'s autograd step. Both give the same numbers.
 
 Spans (utils/profiling.py: profiler ranges while one records, host seconds
 always): `gsl.segment` around each segment, `gsl.rebuild` / `gsl.select`
 around each build of the slot / cover buffer, per launched step
 `gsl.step` with `gsl.render`, `gsl.loss`, `gsl.backward`, `gsl.adam`
-inside it, and `gsl.read` around a segment's one host read. Their seconds
-and the launched steps and segments come back in the PairResult.
+inside it, and `gsl.read` around a segment's one host read. In the staged
+step `gsl.render` is K1's launch, `gsl.loss` stage B, `gsl.backward` K2's
+launch and `gsl.adam` stage C (with the next step's camera). Their seconds,
+the launched steps, the segments and the launched steps served by graph
+replays come back in the PairResult.
 """
 
 from __future__ import annotations
@@ -56,6 +67,9 @@ from .._device import DEFAULT_DEVICE, F32, as_f32, resolve_device
 from ..losses import tracking_loss
 from ..models.gaussians import GaussianScene
 from ..models.pose import PoseState
+from ..ops import kcover
+from ..ops.fused_subtile import N_SUB, P_SUB, scramble_image, unscramble_image
+from ..ops.fused_tracking import cam_vector
 from ..ops.lie import invert_se3
 from ..utils.profiling import span
 from .adam import AdamState, adam_init, adam_step, exponential_lr
@@ -138,6 +152,8 @@ class PairResult(NamedTuple):
     launched: int = 0
     # segments, each ended by one host read
     segments: int = 0
+    # launched steps whose two plain-torch stages were CUDA graph replays
+    replayed: int = 0
     # host seconds of the loop by HOST_KEYS key (the spans' `into`)
     host_s: dict | None = None
 
@@ -162,6 +178,90 @@ def _select(run, new, old):
     if isinstance(new, tuple):
         return type(new)(*(_select(run, n, o) for n, o in zip(new, old)))
     return torch.where(run, new, old)
+
+
+def _select_into(run, new, old):
+    """`_select` written over `old`'s own tensors."""
+    if isinstance(new, tuple):
+        for n, o in zip(new, old):
+            _select_into(run, n, o)
+    else:
+        torch.where(run, new, old, out=old)
+
+
+def _copy_into(dst, src):
+    """Tree-wise dst.copy_(src)."""
+    if isinstance(dst, tuple):
+        for d, s_ in zip(dst, src):
+            _copy_into(d, s_)
+    else:
+        dst.copy_(src)
+
+
+def _clone(tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_clone(t) for t in tree))
+    return tree.clone()
+
+
+def _moved_px(pose, ref_pose, rb_zmin, K, sec2):
+    """Conservative screen-motion bound of `pose` since `ref_pose`:
+    parallax of the NEAREST visible point (rb_zmin) plus rotation sweep,
+    with the image-corner sec^2 factor bounding pan/tilt/roll/forward."""
+    dt = torch.linalg.norm(pose.trans - ref_pose.trans)
+    # chord-norm angle: arccos(q.q') has a sqrt(eps_f32) noise floor
+    # near identity; the chord form is exact at zero motion
+    qn = pose.quat / torch.linalg.norm(pose.quat)
+    qrn = ref_pose.quat / torch.linalg.norm(ref_pose.quat)
+    chord = torch.minimum(
+        torch.linalg.norm(qn - qrn), torch.linalg.norm(qn + qrn)
+    )
+    ang = 2.0 * torch.arcsin((0.5 * chord).clamp(0.0, 1.0))
+    return K[0, 0] * sec2 * (dt / rb_zmin + ang)
+
+
+def _gate_factor(counter, config):
+    """The coast mode's loosening of both motion gates."""
+    if config.coast_after_steps <= 0:
+        return 1.0
+    return torch.where(counter > config.coast_after_steps,
+                       config.coast_gate_factor, 1.0)
+
+
+def _bookkeep(c: _Carry, loss, dl, sl, pose, adam_q, adam_t,
+              config) -> _Carry:
+    """The carry after the step at c.pose that gave these losses, the new
+    pose and Adam states: best-loss tracking after the warm-up, the
+    patience and coast counters, the step count."""
+    track = c.step >= config.warmup_steps + 1
+    improved = track & (loss < c.best_loss)
+    best_loss = torch.where(improved, loss, c.best_loss)
+    best_dl = torch.where(improved, dl, c.best_dl)
+    best_sl = torch.where(improved, sl, c.best_sl)
+    best_pose = _select(improved, c.pose, c.best_pose)
+    counter = torch.where(
+        track, torch.where(improved, 0, c.counter + 1), c.counter
+    ).to(torch.int32)
+    # coast counter: resets only on a >= coast_rtol RELATIVE
+    # improvement. inf * (1 - rtol) == inf, so the first tracked
+    # improvement still resets it.
+    improved_c = track & (loss < c.best_loss * (1.0 - config.coast_rtol))
+    coast_counter = torch.where(
+        track, torch.where(improved_c, 0, c.coast_counter + 1),
+        c.coast_counter
+    ).to(torch.int32)
+    return _Carry(
+        step=c.step + 1,
+        pose=pose,
+        adam_q=adam_q,
+        adam_t=adam_t,
+        best_loss=best_loss,
+        best_dl=best_dl,
+        best_sl=best_sl,
+        best_pose=best_pose,
+        counter=counter,
+        coast_counter=coast_counter,
+    )
 
 
 def _render_general_depth(scene, viewmat, K, width, height, config,
@@ -223,6 +323,218 @@ def _pose_step(render_depth, pose, adam_q, adam_t, step, depth_gt, config,
             PoseState(quat=new_q, trans=new_t), adam_q, adam_t)
 
 
+# the staged K-cover steps of the last (device, image size, config) on a
+# CUDA device, graphs and tensors: a process tracks one configuration at
+# a time, and a new one frees the old
+_STAGED: dict = {}
+
+
+class _KcoverSteps:
+    """The K-cover path's launched step as stages over fixed ("static")
+    tensors, K1 and K2 launched from Python between them:
+
+      K1  `kcover_step_fwd(kbuf, cam)` at a clone of `cam`: the step's
+          (2, M_out) rows, copied into `rows`;
+      B   (`_loss`) the rows unscrambled, cropped and divided into the
+          depth, `tracking_loss` against `depth_gt`, and its gradient
+          w.r.t. the two images, scrambled: `g_d`, `g_a` and `loss`
+          [total, depth, silhouette];
+      K2  `kcover_step_bwd` at the same kbuf and cam with g_d, g_a and
+          K1's rows: the 12 pose scalars, copied into `d12`;
+      C   (`_update`) this step's gate from the carry before it, the VJP
+          of the pose -> cam chain at `_d_cam(d12)`, Adam, the best-loss
+          and coast bookkeeping, the carry mask, and (stage A) the next
+          step's `cam` from the new carry pose.
+
+    B and C replay `_pose_step`'s ops and its loop's bookkeeping, and
+    scramble / unscramble only move data, so the numbers are the parent
+    loop's bit for bit. With `graphs` (a CUDA device) B and C are captured
+    as CUDA graphs after one eager step and replayed from then on; K1, K2
+    and K2's reduction are never captured, so that each launched step
+    launches each once, on the step's own cam and the select's own kbuf.
+    Without, the same stages run eagerly on the same tensors."""
+
+    def __init__(self, dev, config: TrackingConfig, width: int, height: int,
+                 graphs: bool):
+        from ..ops.binning import TILE_H, TILE_W
+
+        self.dev, self.config = dev, config
+        self.width, self.height = width, height
+        self.n_ty, self.n_tx = -(-height // TILE_H), -(-width // TILE_W)
+        self.gamma = config.lr_decay_total ** (1.0 / config.max_steps)
+        m_out = self.n_ty * self.n_tx * N_SUB * P_SUB
+
+        def f(*shape):
+            return torch.zeros(shape, dtype=F32, device=dev)
+
+        def i():
+            return torch.zeros((), dtype=torch.int32, device=dev)
+
+        # per call: the camera, the target, the motion bound's factor
+        self.K, self.depth_gt, self.sec2 = f(3, 3), f(height, width), f()
+        # per segment: the selection pose and nearest depth of the gate,
+        # the carried mask and whether a step of the segment has run
+        self.sel, self.rb_zmin = PoseState(f(4), f(3)), f()
+        self.run = torch.ones((), dtype=torch.bool, device=dev)
+        self.mid = torch.zeros((), dtype=torch.bool, device=dev)
+        self.c = _Carry(
+            step=i(), pose=PoseState(f(4), f(3)),
+            adam_q=AdamState(f(4), f(4)), adam_t=AdamState(f(3), f(3)),
+            best_loss=f(), best_dl=f(), best_sl=f(),
+            best_pose=PoseState(f(4), f(3)), counter=i(), coast_counter=i())
+        # per step: what the stages and K1/K2 hand on
+        self.cam, self.rows, self.d12 = f(18), f(2, m_out), f(12)
+        self.g_d, self.g_a, self.loss = f(m_out), f(m_out), f(3)
+        self.graphs = {} if graphs else None
+        self.pool = torch.cuda.graph_pool_handle() if graphs else None
+        self.warm = False  # a step has run eagerly (before any capture)
+
+    def start(self, c: _Carry, K, depth_gt, sec2) -> None:
+        """Load a pair: its initial carry, camera and target; the first
+        step's cam."""
+        with torch.no_grad():
+            _copy_into(self.c, c)
+            self.K.copy_(K)
+            self.depth_gt.copy_(depth_gt)
+            self.sec2.copy_(sec2)
+            self._cam()
+
+    def carry(self) -> _Carry:
+        """A copy of the carry (the stages overwrite theirs)."""
+        return _clone(self.c)
+
+    def segment(self, kbuf, n_seg: int, sel_pose: PoseState, rb_zmin,
+                host_s: dict) -> int:
+        """Enqueue a segment of n_seg launched steps on the cover `kbuf`,
+        with the select gate at `sel_pose` / `rb_zmin`, reading nothing
+        back. Returns the steps served by replays."""
+        with torch.no_grad():
+            _copy_into(self.sel, sel_pose)
+            self.rb_zmin.copy_(rb_zmin)
+            self.run.fill_(True)
+            self.mid.fill_(False)
+        replayed = 0
+        for _ in range(n_seg):
+            with span("gsl.step", host_s):
+                replayed += self._step(kbuf, host_s)
+        return replayed
+
+    def _step(self, kbuf, host_s) -> bool:
+        near, far = self.config.near_plane, self.config.far_plane
+        with torch.no_grad():
+            with span("gsl.render", host_s):
+                cam = self.cam.clone()  # the step's own: C rewrites `cam`
+                rows = kcover.kcover_step_fwd(kbuf, cam, self.n_ty,
+                                              self.n_tx, near, far)
+            with span("gsl.loss", host_s):
+                self.rows.copy_(rows)
+                rb = self._stage("loss")
+            with span("gsl.backward", host_s):
+                self.d12.copy_(kcover.kcover_step_bwd(
+                    kbuf, cam, self.n_ty, self.n_tx, near, far, self.g_d,
+                    self.g_a, rows))
+            with span("gsl.adam", host_s):
+                rc = self._stage("update")
+        if self.graphs is not None:
+            self.warm = True
+        return rb and rc
+
+    def _stage(self, name: str) -> bool:
+        """Run stage `name`: a replay of its graph (captured now if it has
+        none yet and a step has warmed the stages up) or eagerly. Returns
+        whether it was a replay."""
+        fn = getattr(self, "_" + name)
+        if self.graphs is None or not self.warm:
+            fn()
+            return False
+        with torch.cuda.device(self.dev):
+            g = self.graphs.get(name)
+            if g is None:
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, pool=self.pool,
+                                      capture_error_mode="thread_local"):
+                    fn()
+                self.graphs[name] = g
+            g.replay()
+        return True
+
+    def _cam(self) -> None:
+        """Stage A: the carry pose -> the cam vector K1/K2 take."""
+        with torch.no_grad():
+            vm = invert_se3(self.c.pose.to_c2w())
+            self.cam.copy_(cam_vector(vm, self.K, self.width, self.height))
+
+    def _loss(self) -> None:
+        """Stage B: the tracking loss of the rows and its gradient to them,
+        as `_pose_step` takes them through the K-cover render."""
+        n_ty, n_tx, h, w = self.n_ty, self.n_tx, self.height, self.width
+        with torch.enable_grad():
+            d_img = unscramble_image(self.rows[0], n_ty, n_tx)
+            a_img = unscramble_image(self.rows[1], n_ty, n_tx)
+            d_img.requires_grad_(True)
+            a_img.requires_grad_(True)
+            depth = d_img[:h, :w] / a_img[:h, :w].clamp_min(1e-10)
+            tl = tracking_loss(depth, self.depth_gt, self.config.depth_lambda,
+                               self.config.normal_lambda)
+            gd_img, ga_img = torch.autograd.grad(tl.total, (d_img, a_img))
+        with torch.no_grad():
+            self.g_d.copy_(scramble_image(gd_img, n_ty, n_tx))
+            self.g_a.copy_(scramble_image(ga_img, n_ty, n_tx))
+            self.loss.copy_(torch.stack([tl.total, tl.depth, tl.silhouette]))
+
+    def _update(self) -> None:
+        """Stage C: the step's gate, the pose gradient from K2's 12
+        scalars, Adam, the bookkeeping, the masked carry, the next cam."""
+        cfg, c = self.config, self.c
+        with torch.no_grad():
+            # the loop condition before this step; a segment's first step
+            # skips the selection staleness gate
+            run = self.run
+            if cfg.early_stop:
+                run = run & (c.counter < cfg.patience)
+            run = run & (~self.mid | (
+                _moved_px(c.pose, self.sel, self.rb_zmin, self.K, self.sec2)
+                <= cfg.select_motion_px * _gate_factor(c.coast_counter, cfg)))
+        with torch.enable_grad():
+            quat = c.pose.quat.detach().requires_grad_(True)
+            trans = c.pose.trans.detach().requires_grad_(True)
+            cam = cam_vector(invert_se3(PoseState(quat, trans).to_c2w()),
+                             self.K, self.width, self.height)
+            # d_cam enters as the weight of a sum: its gradient w.r.t. cam
+            # is 1 * d_cam, exactly d_cam. (A tensor passed as grad_outputs
+            # makes torch import sympy, seconds at a process's first step.)
+            g_q, g_t = torch.autograd.grad(
+                (cam * kcover._d_cam(self.d12)).sum(), (quat, trans))
+        with torch.no_grad():
+            new_q, adam_q = adam_step(
+                c.pose.quat, g_q, c.adam_q, c.step,
+                exponential_lr(cfg.quat_lr, self.gamma, c.step), cfg.quat_wd)
+            new_t, adam_t = adam_step(
+                c.pose.trans, g_t, c.adam_t, c.step,
+                exponential_lr(cfg.trans_lr, self.gamma, c.step),
+                cfg.trans_wd)
+            new_c = _bookkeep(c, self.loss[0], self.loss[1], self.loss[2],
+                              PoseState(new_q, new_t), adam_q, adam_t, cfg)
+            _select_into(run, new_c, c)
+            self.run.copy_(run)
+            self.mid.fill_(True)
+        self._cam()
+
+
+def _kcover_steps(dev, config: TrackingConfig, width: int,
+                  height: int) -> _KcoverSteps:
+    """The staged K-cover steps for this device, image and config: on a
+    CUDA device the cached ones (graphs captured once), else new eager
+    ones."""
+    if dev.type != "cuda":
+        return _KcoverSteps(dev, config, width, height, graphs=False)
+    key = (dev, config, width, height)
+    if key not in _STAGED:
+        _STAGED.clear()
+        _STAGED[key] = _KcoverSteps(dev, config, width, height, graphs=True)
+    return _STAGED[key]
+
+
 def optimize_pose(
     scene: GaussianScene,
     init_c2w,  # (4, 4) — tar frame pose
@@ -260,7 +572,6 @@ def optimize_pose(
     )
     from ..ops.fused_tracking import (
         build_slot_buffer,
-        cam_vector,
         compact_slot_buffer,
         fused_probe,
         render_tracking_depth,
@@ -324,25 +635,10 @@ def optimize_pose(
             + (height / (2.0 * K[1, 1])) ** 2)
 
     def moved_px(pose, ref_pose, rb_zmin):
-        # conservative screen-motion bound of `pose` since `ref_pose`:
-        # parallax of the NEAREST visible point plus rotation sweep, with
-        # the image-corner sec^2 factor bounding pan/tilt/roll/forward
-        dt = torch.linalg.norm(pose.trans - ref_pose.trans)
-        # chord-norm angle: arccos(q.q') has a sqrt(eps_f32) noise floor
-        # near identity; the chord form is exact at zero motion
-        qn = pose.quat / torch.linalg.norm(pose.quat)
-        qrn = ref_pose.quat / torch.linalg.norm(ref_pose.quat)
-        chord = torch.minimum(
-            torch.linalg.norm(qn - qrn), torch.linalg.norm(qn + qrn)
-        )
-        ang = 2.0 * torch.arcsin((0.5 * chord).clamp(0.0, 1.0))
-        return K[0, 0] * sec2 * (dt / rb_zmin + ang)
+        return _moved_px(pose, ref_pose, rb_zmin, K, sec2)
 
     def gate_factor(counter):
-        if config.coast_after_steps <= 0:
-            return 1.0
-        return torch.where(counter > config.coast_after_steps,
-                           config.coast_gate_factor, 1.0)
+        return _gate_factor(counter, config)
 
     def render_depth(viewmat, buf):
         """buf: the K-cover records, (slot3d, meta) on the sub-tile and
@@ -369,38 +665,7 @@ def optimize_pose(
         loss, dl, sl, pose, adam_q, adam_t = _pose_step(
             lambda vm: render_depth(vm, buf), c.pose, c.adam_q, c.adam_t,
             c.step, depth_gt, config, gamma, host_s)
-
-        # best-loss bookkeeping (after warmup)
-        track = c.step >= config.warmup_steps + 1
-        improved = track & (loss < c.best_loss)
-        best_loss = torch.where(improved, loss, c.best_loss)
-        best_dl = torch.where(improved, dl, c.best_dl)
-        best_sl = torch.where(improved, sl, c.best_sl)
-        best_pose = _select(improved, c.pose, c.best_pose)
-        counter = torch.where(
-            track, torch.where(improved, 0, c.counter + 1), c.counter
-        ).to(torch.int32)
-        # coast counter: resets only on a >= coast_rtol RELATIVE
-        # improvement. inf * (1 - rtol) == inf, so the first tracked
-        # improvement still resets it.
-        improved_c = track & (loss < c.best_loss * (1.0 - config.coast_rtol))
-        coast_counter = torch.where(
-            track, torch.where(improved_c, 0, c.coast_counter + 1),
-            c.coast_counter
-        ).to(torch.int32)
-
-        return _Carry(
-            step=c.step + 1,
-            pose=pose,
-            adam_q=adam_q,
-            adam_t=adam_t,
-            best_loss=best_loss,
-            best_dl=best_dl,
-            best_sl=best_sl,
-            best_pose=best_pose,
-            counter=counter,
-            coast_counter=coast_counter,
-        )
+        return _bookkeep(c, loss, dl, sl, pose, adam_q, adam_t, config)
 
     with torch.no_grad():
         init_pose = PoseState.from_c2w(init_c2w)
@@ -429,12 +694,18 @@ def optimize_pose(
         counter=zero_i,
         coast_counter=zero_i,
     )
+    # the K-cover path on one device runs the staged step (graphs on a
+    # card); the others, bands included, the autograd step
+    staged = (_kcover_steps(dev, config, width, height)
+              if use_kcover and mesh is None else None)
+    if staged is not None:
+        staged.start(c, K, depth_gt, sec2)
     rb_pose = sel_pose = init_pose
     n_rebuilds = n_selects = 0
     host_step = host_counter = 0
     do_resort = do_select = False
     seg_len = max(int(config.resort_every), 1)
-    n_launched = n_segments = 0
+    n_launched = n_segments = n_replayed = 0
 
     while host_step < config.max_steps and (
             not config.early_stop or host_counter < config.patience):
@@ -442,6 +713,10 @@ def optimize_pose(
             # segment boundary: at most ONE rebuild and ONE re-selection,
             # both decided on the device at the end of the previous segment
             with torch.no_grad():
+                if do_select:
+                    # free the stale cover buffer before its successor (and
+                    # a rebuild) takes its memory
+                    kbuf = buf = None
                 if do_resort:
                     with span("gsl.rebuild", host_s):
                         slot3d, slot_meta, rb_zmin, new_ovf = make_slots(
@@ -462,23 +737,29 @@ def optimize_pose(
             # enqueue the whole segment without reading anything back;
             # `run` carries the inner loop condition on the device and
             # masks the steps after it turned false
-            run = torch.ones((), dtype=torch.bool, device=dev)
             n_seg = min(seg_len, config.max_steps - host_step)
-            for i in range(n_seg):
-                with span("gsl.step", host_s):
-                    with torch.no_grad():
-                        if config.early_stop:
-                            run = run & (c.counter < config.patience)
-                        if use_kcover and i > 0:
-                            # selection staleness gate INSIDE the loop
-                            # condition; a segment's first step always runs
-                            run = run & (
-                                moved_px(c.pose, sel_pose, rb_zmin)
-                                <= config.select_motion_px
-                                * gate_factor(c.coast_counter))
-                    new_c = body_inner(c, buf)
-                    with torch.no_grad():
-                        c = _select(run, new_c, c)
+            if staged is not None:
+                n_replayed += staged.segment(kbuf, n_seg, sel_pose, rb_zmin,
+                                             host_s)
+                c = staged.carry()
+            else:
+                run = torch.ones((), dtype=torch.bool, device=dev)
+                for i in range(n_seg):
+                    with span("gsl.step", host_s):
+                        with torch.no_grad():
+                            if config.early_stop:
+                                run = run & (c.counter < config.patience)
+                            if use_kcover and i > 0:
+                                # selection staleness gate INSIDE the loop
+                                # condition; a segment's first step always
+                                # runs
+                                run = run & (
+                                    moved_px(c.pose, sel_pose, rb_zmin)
+                                    <= config.select_motion_px
+                                    * gate_factor(c.coast_counter))
+                        new_c = body_inner(c, buf)
+                        with torch.no_grad():
+                            c = _select(run, new_c, c)
             n_launched += n_seg
             n_segments += 1
 
@@ -525,6 +806,7 @@ def optimize_pose(
         slot_overflow=bool(overflow),
         launched=n_launched,
         segments=n_segments,
+        replayed=n_replayed,
         host_s=host_s,
     )
 

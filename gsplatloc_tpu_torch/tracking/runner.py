@@ -66,9 +66,10 @@ class SequenceResult:
     #   collect — host readout + logging, figures and checkpoints;
     #   step / render / loss / backward / adam / read / rebuild / select —
     #     optimize_pose's own spans (PairResult.host_s), inside optimize.
-    # Beside the seconds it holds two counts, summed over the pairs:
+    # Beside the seconds it holds three counts, summed over the pairs:
     #   launched — the steps optimize_pose enqueued (>= sum(steps));
-    #   segments — its host reads, one a segment.
+    #   segments — its host reads, one a segment;
+    #   replayed — the launched steps served by CUDA graph replays.
     # (stage_s is the one record the benchmark sums key by key.)
     stage_s: dict = field(default_factory=dict)
 
@@ -347,7 +348,8 @@ class SequenceRunner:
                             backend=self.backend, device=self.device,
                         )
                     for k, v in dict(out.host_s, launched=out.launched,
-                                     segments=out.segments).items():
+                                     segments=out.segments,
+                                     replayed=out.replayed).items():
                         acc[k] = acc.get(k, 0) + v
                     with span("gsl.collect", acc):
                         if prefetch:

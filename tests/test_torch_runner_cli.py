@@ -57,7 +57,8 @@ def test_runner_matches_reference_runner(tmp_path, kcover, max_pairs):
     assert set(rt.stage_s) == {"wait", "decode", "knn", "parse", "scene",
                                "optimize", "collect", "step", "render",
                                "loss", "backward", "adam", "read", "rebuild",
-                               "select", "launched", "segments"}
+                               "select", "launched", "segments",
+                               "replayed"}
 
 
 def test_sequence_runner_kcover0_recovers_pose(tmp_path):

@@ -163,9 +163,11 @@ def test_runner_stage_keys_and_worker_spans(tmp_path, monkeypatch):
         res = r.train(progress=False, prefetch=True)
     assert set(res.stage_s) == {
         "wait", "decode", "knn", "parse", "scene", "optimize", "collect",
-        *HOST_KEYS, "launched", "segments"}
+        *HOST_KEYS, "launched", "segments", "replayed"}
     assert res.stage_s["launched"] == sum(o.launched for o in outs) > 0
     assert res.stage_s["segments"] == sum(o.segments for o in outs) > 0
+    # the CPU runs the staged step eagerly
+    assert res.stage_s["replayed"] == sum(o.replayed for o in outs) == 0
     main = threading.get_ident()
     assert [a for n, a, t in ranges if n == "gsl.pair" and t == main] == [
         "0", "1"]
