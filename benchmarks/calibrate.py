@@ -35,6 +35,7 @@ def calibrate(cell: dict, cfg: dict, cache: Path, tmp: Path, device: str,
     import check
     import harness
 
+    harness.reference(harness.tracking_path(cfg))  # before any pair
     window = harness.Window(cell, cfg, cache, tmp, device)
     rows = []
     for clip in range(len(cell["clips"])):
@@ -91,6 +92,11 @@ def main(argv=None) -> int:
 
     c = harness.cell(args.workload)
     cfg = harness.config(c["config"])
+    try:
+        harness.reference(harness.tracking_path(cfg))  # before any frame
+    except harness.MissingReference as e:
+        print(f"{args.workload}: {e}", file=sys.stderr)
+        return 5
     cache = harness.ensure_frames(c["config"], cfg)
     with tempfile.TemporaryDirectory(prefix="gslbench-cal-") as tmp:
         calibrate(c, cfg, cache, Path(tmp), "cuda",

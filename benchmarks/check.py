@@ -4,11 +4,11 @@ plain reference (plainref/) tracking the same pairs from the same files.
 For each pair the seed samples, the reference reads the clip's depth
 frames and poses with its own loader (layouts/<dataset>.py:read_clip),
 redoes the whole prepare (back-projection, PCA normalisation, exact kNN
-scales over scipy's tree, the depth target through the sub-tile walk, the
-scene) and the whole K-cover loop (rebuilds, selects, the step render and
-its backward, the masked depth + Sobel loss, Adam, the gates, the best
-pose) in plain PyTorch float32 with TF32 off, and the two best poses are
-compared in the pair's normalized frame:
+scales over scipy's tree, the scene: plainref/pair.py) and the
+configuration's tracking path, its depth target and its loop
+(plainref/paths/<path>.py, the path named by harness.tracking_path), in
+plain PyTorch float32 with TF32 off, and the two best poses are compared
+in the pair's normalized frame:
 
     pose_gap_cm     distance between the two best translations (x 100,
                     the unit the runner reports eT in)
@@ -55,12 +55,12 @@ def reference_pairs(window, checked: list, device: str,
     """{(clip, pair): the reference's track_pair output} of the checked
     pairs, each read from its clip's folder; tf32=True makes it the
     control (calibrate.py)."""
-    from harness import adapter
+    from harness import adapter, reference
     from plainref.opt.tracking import TrackingConfig
-    from plainref.pair import track_pair
 
     cfg = window.cfg
     mod = adapter(cfg)
+    track_pair = reference(window.path).track_pair
     tracking = TrackingConfig(**cfg["tracking"])
     out, clips = {}, {}
     with matmul_precision(tf32):

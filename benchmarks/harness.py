@@ -14,6 +14,15 @@ BENCHMARK.json:
                             nominal seconds of a pass, the pairs the check
                             samples, the clip a traced run profiles
     metrics/<metric>.py     a reader: read(record) -> number or None
+    plainref/paths/<path>.py
+                            the plain reference of one tracking path
+                            (`tracking_path`): the pair's depth target and
+                            loop, track_pair(...) -> best pose, steps,
+                            selects
+    rooflines/<group>.py    one kernel group's roofline (tracer.py): the
+                            port's attributes whose calls carry a
+                            launch's inputs, its kernels' name fragments,
+                            the launch's bound
 
 The window is closed-loop: a pass runs every clip of the cell once, in an
 order drawn from the seed, each clip through a new `SequenceRunner` and
@@ -67,14 +76,52 @@ def adapter(cfg: dict):
     return importlib.import_module(f"layouts.{cfg['dataset']}")
 
 
-def reader(metric: str):
-    """The `read` function of metrics/<metric>.py."""
-    path = HERE / "metrics" / f"{metric}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{metric.replace('.', '_').replace('-', '_')}", path)
+def load(path: Path, name: str):
+    """The module of the file `path`, run under the module name `name`."""
+    mod_spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    """The `read` function of metrics/<metric>.py."""
+    return load(HERE / "metrics" / f"{metric}.py",
+                f"bench_metric_{metric.replace('.', '_').replace('-', '_')}"
+                ).read
+
+
+class MissingReference(LookupError):
+    """The configuration's tracking path has no plain reference."""
+
+
+def tracking_path(cfg: dict) -> str:
+    """The tracking path the port runs for a configuration, from the
+    fields it reads itself (`SequenceRunner`'s depth-target backend and
+    `optimize_pose`'s switches, over the port's TrackingConfig defaults):
+    "general" for backend pallas or reference, else "fulltile" without
+    `subtile`, else "kcover" with `kcover` > 0, else "subtile"."""
+    from gsplatloc_tpu_torch.opt.tracking import TrackingConfig
+
+    if cfg["backend"] in ("pallas", "reference"):
+        return "general"
+    tracking = TrackingConfig(**cfg["tracking"])
+    if not tracking.subtile:
+        return "fulltile"
+    return "kcover" if tracking.kcover > 0 else "subtile"
+
+
+def reference(path: str):
+    """The module plainref/paths/<path>.py, the plain reference of the
+    tracking path `path`; raises MissingReference, naming the path and the
+    file, where there is none."""
+    file = HERE / "plainref" / "paths" / f"{path}.py"
+    if not file.is_file():
+        raise MissingReference(
+            f"the {path!r} tracking path has no plain reference: "
+            f"{file.relative_to(HERE.parent)} is missing, so no run of it "
+            f"can be judged")
+    return load(file, f"plainref.paths.{path}")
 
 
 def forbidden_modules() -> list:
@@ -140,6 +187,7 @@ class Window:
 
         self.cell, self.cfg, self.tmp, self.device = cell_, cfg, tmp, device
         self.tracking = TrackingConfig(**cfg["tracking"])
+        self.path = tracking_path(cfg)
         ce = cfg.get("crop_edge", 0)
         self.image_wh = (cfg["width"] - 2 * ce, cfg["height"] - 2 * ce)
         mod = adapter(cfg)

@@ -1,12 +1,15 @@
-"""One frame pair tracked by the plain reference, from two decoded depth
-frames to the best pose.
+"""The prepare of one frame pair that every tracking path shares, from two
+decoded depth frames to the scene and the depth target, and the result a
+path's `track_pair` returns.
 
-The steps are those of the port's `SequenceRunner` on the K-cover path
-(`data/parser.py:_assemble_pair`, `render_depth_gt` with the sub-tile
-backend, `models/gaussians.py:scene_from_point_cloud` with exact kNN
-scales, `opt/tracking.py:optimize_pose`), frozen here in their plain
-PyTorch forms. Colour is left out: it reaches only the scene's SH
-coefficients, which the depth render and the depth-only loss never read.
+The steps are those of the port's `SequenceRunner` (`data/parser.py:
+_assemble_pair`, `render_depth_gt`, `models/gaussians.py:
+scene_from_point_cloud` with exact kNN scales), frozen here in their plain
+PyTorch forms; the depth target's render is the path's own (the port
+renders it through the path's kernel family), passed in by the path
+module (`plainref/paths/<path>.py`). Colour is left out: it reaches only
+the scene's SH coefficients, which the depth render and the depth-only
+loss never read.
 """
 
 from __future__ import annotations
@@ -18,9 +21,8 @@ from ._device import as_f32
 from .models.gaussians import scene_from_point_cloud
 from .ops.camera import depth_to_points
 from .ops.knn import exact_knn_sq_dists
-from .ops.lie import invert_se3, transform_points
+from .ops.lie import transform_points
 from .ops.pca import normalize_pair
-from .opt.tracking import TrackingConfig, optimize_pose
 
 
 def camera_cloud(depth: np.ndarray, K: np.ndarray) -> np.ndarray:
@@ -36,32 +38,14 @@ def camera_cloud(depth: np.ndarray, K: np.ndarray) -> np.ndarray:
     return np.stack([x, y, depth], axis=-1).reshape(-1, 3)
 
 
-def render_depth_gt(points, K, c2w, height, width, knn_sq_dists, device):
-    """The pair's depth target: the src cloud as opacity-1 Gaussians with
-    kNN scales, rendered to depth from tar's pose through the sub-tile
-    walk (K4a/K4b's plain forms)."""
-    from .ops.fused_subtile import (
-        build_subtile_slot_buffer,
-        render_tracking_depth_subtile,
-    )
-
-    with torch.no_grad():
-        scene = scene_from_point_cloud(
-            points, torch.zeros_like(points), grid_shape=(height, width),
-            knn_sq_dists=knn_sq_dists, device=device)
-        vm = invert_se3(as_f32(c2w, device))
-        slot, meta, _ = build_subtile_slot_buffer(
-            scene, vm, as_f32(K, device), width, height, 1e-2, 1e10)
-        depth, _alpha = render_tracking_depth_subtile(
-            vm, as_f32(K, device), width, height, slot, meta)
-    return depth
-
-
-def track_pair(tar_depth, tar_c2w, src_depth, src_c2w, K,
-               config: TrackingConfig, device) -> dict:
-    """Track src against tar. Depths (H, W) in metres as float64 arrays,
-    poses (4, 4), K (3, 3). Returns the pair's best pose in its normalized
-    frame (float64 (4, 4)) and its steps run and selects."""
+def prepare(tar_depth, tar_c2w, src_depth, src_c2w, K, depth_target,
+            device) -> tuple:
+    """(scene, tar's normalized pose, depth target, K, width, height) of
+    the pair: exact kNN scales over both clouds, back-projection, PCA
+    normalisation, the depth target `depth_target(src_points, K, tar_c2w,
+    height, width, knn_sq_dists, device)` in the normalized frame, and
+    tar's scene. Depths (H, W) in metres as float64 arrays, poses (4, 4),
+    K (3, 3)."""
     dev = torch.device(device)
     h, w = src_depth.shape
     knn_tar = exact_knn_sq_dists(camera_cloud(tar_depth, K), 5)
@@ -74,12 +58,17 @@ def track_pair(tar_depth, tar_c2w, src_depth, src_c2w, K,
         src_points = transform_points(tc, depth_to_points(sd, Kt))
         tar_points, src_points, tar_n, _src_n, pca_factor = normalize_pair(
             tar_points, src_points, tc, sc)
-        depth_gt = render_depth_gt(src_points, Kt, tar_n, h, w, knn_src,
-                                   dev) / pca_factor
+        depth_gt = depth_target(src_points, Kt, tar_n, h, w, knn_src,
+                                dev) / pca_factor
         scene = scene_from_point_cloud(
             tar_points, torch.zeros_like(tar_points), grid_shape=(h, w),
             knn_sq_dists=knn_tar, knn_method="exact", device=dev)
-    out = optimize_pose(scene, tar_n, depth_gt, Kt, w, h, config=config,
-                        device=dev)
+    return scene, tar_n, depth_gt, Kt, w, h
+
+
+def result(out) -> dict:
+    """What a path's `track_pair` returns of its loop's PairResult: the
+    best pose in the pair's normalized frame (float64 (4, 4)), the steps
+    run and the selects."""
     return dict(best_c2w=out.best_pose.to_c2w().double().cpu().numpy(),
                 steps=int(out.steps_run), selects=int(out.selects))

@@ -5,15 +5,17 @@
         --trace <0|1>
 
 Run from the root of a checkout on a machine with the cell's CUDA devices.
-Set-up (counted in setup_s): import the port, write the configuration's
-frames once per checkout (benchmarks/_cache/), make the cell's clip
-folders under TMPDIR, track one warm pair. The window: whole passes over
-the cell's clips (harness.py), as many as --seconds asks for. --trace 1
-then tracks the cell's traced clip under torch.profiler (tracer.py) and
-reports the per-layer metrics. After the window the seed's sampled pairs
-are tracked again by the plain reference (check.py). The last line of
-standard output is one JSON object: correct, attempted, failed, metrics,
-device[, breakdown], checks.
+Set-up (counted in setup_s): import the port, find the plain reference
+of the configuration's tracking path (plainref/paths/<path>.py; without
+one the run stops here, before any frame is written or pair tracked),
+write the configuration's frames once per checkout (benchmarks/_cache/),
+make the cell's clip folders under TMPDIR, track one warm pair. The
+window: whole passes over the cell's clips (harness.py), as many as
+--seconds asks for. --trace 1 then tracks the cell's traced clip under
+torch.profiler (tracer.py) and reports the per-layer metrics. After the
+window the seed's sampled pairs are tracked again by the plain reference
+(check.py). The last line of standard output is one JSON object:
+correct, attempted, failed, metrics, device[, breakdown], checks.
 """
 
 import time
@@ -54,6 +56,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
 
     import gsplatloc_tpu_torch  # noqa: F401  (the system under test)
 
+    # a path with no reference stops here: nothing could judge the run
+    harness.reference(harness.tracking_path(cfg_))
     cache = harness.ensure_frames(cell_["config"], cfg_, log)
     order, checked = harness.seed_plan(seed, cell_)
     with tempfile.TemporaryDirectory(prefix="gslbench-") as tmp:
@@ -129,7 +133,11 @@ def main(argv=None) -> int:
             f"device(s); torch sees "
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 3
-    out = run(args.workload, args.seed, args.seconds, bool(args.trace))
+    try:
+        out = run(args.workload, args.seed, args.seconds, bool(args.trace))
+    except harness.MissingReference as e:
+        log(f"[bench] {args.workload}: {e}; no result")
+        return 5
     bad = harness.forbidden_modules()
     if bad:
         log(f"[bench] the run loaded {bad}: no result")

@@ -31,10 +31,12 @@ def test_no_jax_anywhere():
 
 def test_reference_and_yardstick_take_nothing_of_the_port():
     free = [p for p in sources()
-            if p.parent.name in ("plainref", "ops", "models", "opt", "gen",
-                                 "layouts")
+            if p.parent.name in ("plainref", "ops", "models", "opt", "paths",
+                                 "gen", "layouts", "rooflines")
             or p.name in ("bounds.py", "check.py")]
     assert any(p.parent.name == "plainref" for p in free)
+    assert any(p.parent.name == "paths" for p in free)
+    assert any(p.parent.name == "rooflines" for p in free)
     for path in free:
         assert PORT not in imported(path), f"{path} imports the port"
 

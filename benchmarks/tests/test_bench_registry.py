@@ -1,10 +1,14 @@
-"""The harness finds every cell, configuration and metric of
-BENCHMARK.json from its file, and a new file by its name alone."""
+"""The harness finds every cell, configuration, metric, path reference and
+roofline group of BENCHMARK.json from its file, and a new file by its name
+alone."""
 
 import json
 import shutil
+import sys
+import types
 
 import harness
+import tracer
 
 
 def test_every_entry_has_its_file():
@@ -25,9 +29,20 @@ def test_every_entry_has_its_file():
         # a traced run tracks one pair more than it traces
         assert cell["traced_pairs"] + 1 <= cell["clips"][
             cell["traced_clip"]][1]
+        # the configuration's tracking path has its plain reference
+        ref = harness.reference(harness.tracking_path(harness.config(
+            w["config"])))
+        assert callable(ref.track_pair)
     for kind in ("end_to_end", "per_layer"):
         for m in bench[kind]:
             assert callable(harness.reader(m["name"]))
+    # every roofline group the tracer finds, and the groups the rooflines
+    # read
+    names = {m["name"] for m in bench["per_layer"]}
+    for name, group in tracer.groups().items():
+        assert f"{name}_roofline" in names
+        assert group.HOOKS and group.KERNELS
+        assert callable(group.hold) and callable(group.bound)
 
 
 def test_clips_fit_their_sequence():
@@ -41,8 +56,8 @@ def test_clips_fit_their_sequence():
 
 def test_new_files_need_no_edit(tmp_path, monkeypatch):
     here = tmp_path / "benchmarks"
-    shutil.copytree(harness.HERE / "metrics", here / "metrics")
-    shutil.copytree(harness.HERE / "cells", here / "cells")
+    for sub in ("metrics", "cells", "rooflines", "plainref/paths"):
+        shutil.copytree(harness.HERE / sub, here / sub)
     (here / "metrics" / "pairs_done.py").write_text(
         "def read(rec):\n    return rec.pairs or None\n")
     (here / "metrics" / "nothing_read.py").write_text(
@@ -61,6 +76,43 @@ def test_new_files_need_no_edit(tmp_path, monkeypatch):
     assert harness.read_metrics(bench, True, rec) == {
         "pairs_done": {"value": 7.0, "unit": "count"}}
     assert harness.read_metrics(bench, False, rec) == {}
+
+    # a tracking path's reference, found by the path's name
+    (here / "plainref" / "paths" / "subtile.py").write_text(
+        "def track_pair(*args):\n    return 'the sub-tile loop'\n")
+    assert harness.reference("subtile").track_pair() == "the sub-tile loop"
+
+    # a roofline group: hooked, held, matched to its kernels and bounded,
+    # while the groups whose hooks saw no call read nothing
+    probe = types.ModuleType("bench_probe_ops")
+    probe.launch = lambda x, scale=1: x * scale
+    monkeypatch.setitem(sys.modules, "bench_probe_ops", probe)
+    (here / "rooflines" / "kprobe.py").write_text(
+        "HOOKS = [('bench_probe_ops', 'launch')]\n"
+        "KERNELS = ('probe_kernel', 'probe_tail')\n"
+        "def hold(x, scale=1):\n    return x\n"
+        "def bound(held, window):\n    return held * window\n")
+    groups = tracer.groups()
+    assert {"kprobe", "kstep", "kselect"} <= set(groups)
+    launches = tracer.Launches(groups)
+    undo = tracer.instrument(launches)
+    try:
+        launches.on = True
+        assert [probe.launch(x) for x in (1.0, 2.0, 3.0, 4.0)] == [
+            1.0, 2.0, 3.0, 4.0]
+    finally:
+        tracer.restore(undo)
+    assert probe.launch(5.0, scale=2) == 10.0  # restored
+    # held on its own 1st, 2nd and 4th call
+    assert launches.held["kprobe"] == [1.0, 2.0, None, 4.0]
+    kernels = [("kernel", f"gsl::{frag}_x", 10.0 * i + j, 1000.0 * (i + 1),
+                0) for i in range(4)
+               for j, frag in enumerate(("probe_kernel", "probe_tail"))]
+    assert tracer._roofline_inputs(launches, kernels, 0.5) == {
+        "kprobe": {"bound_ms": 0.5 + 1.0 + 2.0,
+                   "device_ms": 2.0 + 4.0 + 8.0, "launches": 3}}
+    # a count mismatch drops the group
+    assert tracer._roofline_inputs(launches, kernels[1:], 0.5) == {}
 
 
 def test_seed_plan_is_the_seeds():

@@ -1,6 +1,6 @@
 """The traced stretch: the pairs after a new runner's first, under the
-benchmark's own spans, and a run that stops where a span or launch hook
-cannot be attached."""
+benchmark's own spans, a run that stops where a span or launch hook
+cannot be attached, and idle gaps labelled by the port's `gsl.*` spans."""
 
 import pytest
 
@@ -46,5 +46,31 @@ def test_a_missing_hook_stops_the_run(monkeypatch):
     monkeypatch.delattr(kc, "select_kcover_records")
     before = kc.build_kcover_buffer
     with pytest.raises(AttributeError, match="select_kcover_records"):
-        tracer.instrument(tracer.Launches())
+        tracer.instrument(tracer.Launches(tracer.groups()))
     assert kc.build_kcover_buffer is before
+
+
+def test_idle_gaps_take_the_innermost_gsl_span():
+    """Each gap on the card goes to the innermost `gsl.*` span of the main
+    thread open when it began, to the innermost `bench.*` span outside
+    every `gsl.*` one; spans of other threads and closed spans label
+    nothing."""
+    ua, main, worker = "user_annotation", 1, 2
+    events = [
+        (ua, "bench.steady", 0, 100, main),
+        (ua, "bench.device_prepare", 0, 10, main),
+        (ua, "gsl.optimize", 10, 80, main),
+        (ua, "bench.optimize", 10, 80, main),
+        (ua, "gsl.segment", 12, 30, main),
+        (ua, "gsl.step", 14, 6, main),
+        (ua, "gsl.read", 36, 4, main),
+        (ua, "gsl.decode", 50, 40, worker),
+        ("kernel", "k", 1, 4, 0),  # idle 0-1 and 5-15
+        ("kernel", "k", 15, 5, 0),  # idle 20-38
+        ("kernel", "k", 38, 50, 0),  # idle 88-100
+    ]
+    readings, breakdown = tracer.summarize(events)
+    assert readings == {"busy_s": 59 / 1e6, "window_s": 100 / 1e6}
+    assert breakdown["idle_gaps"] == [["gsl.segment", 18 / 1e6],
+                                      ["gsl.optimize", 12 / 1e6],
+                                      ["bench.device_prepare", 11 / 1e6]]

@@ -5,36 +5,46 @@ the second pair's device prepare. So the trace holds `traced_pairs`
 steady pairs: not the runner's construction, nor the first pair, whose
 host prepare nothing hides.
 
-Spans: the benchmark's own `record_function` ranges around the calls into
-each layer of the port, put in place for the traced clip only by wrapping
-the module attributes the port looks up at call time. A name the port no
-longer has stops the run (instrument raises), so that no span or
-roofline goes missing unseen:
+Spans: the port's own `gsl.*` ranges (its `utils/profiling.py:span`,
+recorded while a profiler runs), and the benchmark's `record_function`
+ranges around the runner's calls into each layer, put in place for the
+traced clip only by wrapping the module attributes the port looks up at
+call time. A name the port no longer has stops the run (instrument
+raises), so that no span or roofline goes missing unseen:
 
     bench.steady         the traced stretch: from the second pair's device
                          prepare to the end of the clip
     bench.host_prepare   SequenceRunner._prepare_host (decode + kNN, worker)
     bench.device_prepare SequenceRunner._prepare_device (pair, target, scene)
     bench.optimize       optimize_pose, as the runner calls it
-    bench.rebuild        ops.kcover.build_kcover_slot_buffer
-    bench.select         ops.kcover.build_kcover_buffer (K3)
-    bench.step_render    ops.kcover.render_tracking_depth_kcover (K1)
-    bench.loss           opt.tracking.tracking_loss
-    bench.adam           opt.tracking.adam_step
     bench.collect        SequenceRunner._collect_pair
 
-Launch inputs for the rooflines: the cover buffer and camera of K1/K2
-launches and the slot buffer and camera of K3 launches in the stretch,
-held for the launches of a few selections (the 1st, 2nd, 4th, 8th, ... of
-the stretch, so that the held buffers stay a few); their bounds
-(bounds.py) are set against the device time of the same launches, matched
-to the trace's kernels by launch order.
+Rooflines: one group of kernels a file, rooflines/<group>.py, found by
+name; each names
+
+    HOOKS    the port's (module, attribute) whose calls carry the inputs
+             of one launch of the group
+    KERNELS  the kernel-name fragments whose device time one call makes
+    CLOCK    optional: the group whose calls count this group's sampling
+             clock (kstep follows kselect's selections); by default the
+             group's own calls
+    hold     hold(*args, **kwargs) -> what the bound needs of a call
+    bound    bound(held, window) -> the launch's least time, ms
+
+The hooks of every group are attached. Each group counts its own calls
+only, and holds a call's inputs while its clock's count is 1, 2, 4, 8,
+... (so that the held buffers stay a few); a group added later cannot
+move another's samples. The bounds (bounds.py) are set against the
+device time of the same launches, matched to the trace's kernels by
+launch order. A group whose kernel counts do not match its calls, or
+whose hooks saw no call, reads nothing.
 
 Readings (the record's `trace`): busy_s (the union of kernel, copy and
-set intervals), window_s (the bench.steady span), and per kernel group the
-bound and device milliseconds. The breakdown: the ten device operations
-with the most time, and the idle time grouped by the innermost span the
-main thread was in when each gap began.
+set intervals), window_s (the bench.steady span), and per group the bound
+and device milliseconds. The breakdown: the ten device operations with the
+most time, and the idle time grouped by the innermost `gsl.*` span the
+main thread was in when each gap began (the innermost `bench.*` span
+outside them).
 """
 
 from __future__ import annotations
@@ -54,18 +64,16 @@ SPANS = [
     ("gsplatloc_tpu_torch.tracking.runner", "optimize_pose", "bench.optimize"),
     ("gsplatloc_tpu_torch.tracking.runner", "SequenceRunner._collect_pair",
      "bench.collect"),
-    ("gsplatloc_tpu_torch.ops.kcover", "build_kcover_slot_buffer",
-     "bench.rebuild"),
-    ("gsplatloc_tpu_torch.ops.kcover", "build_kcover_buffer", "bench.select"),
-    ("gsplatloc_tpu_torch.ops.kcover", "render_tracking_depth_kcover",
-     "bench.step_render"),
-    ("gsplatloc_tpu_torch.opt.tracking", "tracking_loss", "bench.loss"),
-    ("gsplatloc_tpu_torch.opt.tracking", "adam_step", "bench.adam"),
 ]
-# kernel-name fragments of the launches the rooflines read
-K1, K2, K2_SUM, K3 = ("kcover_step_fwd_kernel", "kcover_step_bwd_kernel",
-                      "sum12_kernel", "kcover_select_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def groups() -> dict:
+    """{group: module} of every rooflines/<group>.py, by name."""
+    import harness
+
+    return {p.stem: harness.load(p, f"bench_roofline_{p.stem}")
+            for p in sorted((harness.HERE / "rooflines").glob("*.py"))}
 
 
 def _patch(target, attr, wrap) -> tuple:
@@ -89,63 +97,69 @@ def _spanned(name, fn):
 
 
 class Launches:
-    """The inputs of K1/K2 and K3 launches, held for a few selections."""
+    """The inputs of the roofline groups' launches, each group's held for
+    a few ticks of its clock."""
 
-    def __init__(self):
+    def __init__(self, groups_: dict):
         self.on = False  # recording: the traced stretch has begun
-        self.steps = []  # (kbuf or None, cam): one per K1 launch
-        self.selects = []  # (args or None): one per K3 launch
-        self._kbufs = 0
+        self.groups = groups_
+        # per group, one entry a call: its held inputs, or None
+        self.held = {name: [] for name in groups_}
+        self.calls = {name: 0 for name in groups_}  # per group, its own
+        self.clock = {}
+        for name, group in groups_.items():
+            self.clock[name] = getattr(group, "CLOCK", name)
+            if self.clock[name] not in groups_:
+                raise KeyError(f"roofline group {name}'s CLOCK "
+                               f"{self.clock[name]!r} is no group")
 
-    def _keep(self) -> bool:
-        n = self._kbufs
+    def _keep(self, name: str) -> bool:
+        n = self.calls[self.clock[name]]
         return n > 0 and (n & (n - 1)) == 0  # 1, 2, 4, 8, ...
 
-    def step_fwd(self, fn):
-        @functools.wraps(fn)
-        def inner(kbuf, cam, *a, **k):
-            if self.on:
-                self.steps.append((kbuf if self._keep() else None, cam))
-            return fn(kbuf, cam, *a, **k)
-        return inner
+    def hook(self, name: str, fn):
+        group = self.groups[name]
 
-    def select(self, fn):
         @functools.wraps(fn)
         def inner(*a, **k):
             if self.on:
-                self._kbufs += 1
-                self.selects.append(a if self._keep() else None)
+                self.calls[name] += 1
+                self.held[name].append(
+                    group.hold(*a, **k) if self._keep(name) else None)
             return fn(*a, **k)
         return inner
 
 
+def _target(mod_name: str, attr: str) -> tuple:
+    """(object, attribute name) of "module", "attr" or "Class.attr"."""
+    target = importlib.import_module(mod_name)
+    if "." in attr:
+        cls, attr = attr.split(".")
+        if not hasattr(target, cls):
+            raise AttributeError(
+                f"{mod_name} has no {cls}: the benchmark's spans there "
+                f"cannot be attached")
+        target = getattr(target, cls)
+    return target, attr
+
+
 def instrument(launches: Launches) -> list:
-    """Wrap the port's layer entry points in spans and the launch
-    recorders; returns what `restore` puts back. Raises where the port
-    lacks one of them."""
+    """Wrap the runner's layer entry points in spans and every roofline
+    group's hooks in the launch recorder; returns what `restore` puts
+    back. Raises where the port lacks one of them."""
     undo = []
     try:
         for mod_name, attr, span in SPANS:
-            target = importlib.import_module(mod_name)
-            if "." in attr:
-                cls, attr = attr.split(".")
-                target = _attr(target, cls)
-            undo.append(_patch(target, attr,
+            undo.append(_patch(*_target(mod_name, attr),
                                lambda fn, s=span: _spanned(s, fn)))
-        kc = importlib.import_module("gsplatloc_tpu_torch.ops.kcover")
-        undo.append(_patch(kc, "kcover_step_fwd", launches.step_fwd))
-        undo.append(_patch(kc, "select_kcover_records", launches.select))
+        for name, group in launches.groups.items():
+            for mod_name, attr in group.HOOKS:
+                undo.append(_patch(*_target(mod_name, attr),
+                                   lambda fn, g=name: launches.hook(g, fn)))
     except AttributeError:
         restore(undo)
         raise
     return undo
-
-
-def _attr(mod, name: str):
-    if not hasattr(mod, name):
-        raise AttributeError(f"{mod.__name__} has no {name}: the "
-                             f"benchmark's spans there cannot be attached")
-    return getattr(mod, name)
 
 
 def restore(undo: list) -> None:
@@ -174,44 +188,27 @@ def _durations(kernels: list, fragment: str) -> list:
 
 
 def _roofline_inputs(launches: Launches, kernels: list, window) -> dict:
-    """{group: {"bound_ms", "device_ms", "launches"}} over the held
-    launches, each matched to its kernel by launch order."""
+    """{group: {"bound_ms", "device_ms", "launches"}} over each group's
+    held launches, each matched to its kernels by launch order."""
     import torch
 
-    from bounds import select_bound, step_bounds
-
-    w, h = window.image_wh
-    n_tx, n_ty = -(-w // 128), -(-h // 16)
-    near, far = window.tracking.near_plane, window.tracking.far_plane
     out = {}
-    d1, d2, ds = (_durations(kernels, K1), _durations(kernels, K2),
-                  _durations(kernels, K2_SUM))
-    if len(d1) == len(launches.steps) == len(d2) == len(ds):
+    for name, group in launches.groups.items():
+        held = launches.held[name]
+        durations = [_durations(kernels, f) for f in group.KERNELS]
+        if not held or any(len(d) != len(held) for d in durations):
+            continue
         b = t = 0.0
         n = 0
-        for i, (kb, cam) in enumerate(launches.steps):
-            if kb is None:
+        for i, inputs in enumerate(held):
+            if inputs is None:
                 continue
             with torch.no_grad():
-                b1, b2 = step_bounds(kb, cam, n_ty, n_tx, near, far)
-            b += b1 + b2
-            t += (d1[i] + d2[i] + ds[i]) / 1e3
+                b += group.bound(inputs, window)
+            t += sum(d[i] for d in durations) / 1e3
             n += 1
         if n:
-            out["kstep"] = {"bound_ms": b, "device_ms": t, "launches": n}
-    d3 = _durations(kernels, K3)
-    if d3 and len(d3) == len(launches.selects):
-        b = t = 0.0
-        n = 0
-        for i, args in enumerate(launches.selects):
-            if args is None:
-                continue
-            with torch.no_grad():
-                b += select_bound(*args[:8])
-            t += d3[i] / 1e3
-            n += 1
-        if n:
-            out["kselect"] = {"bound_ms": b, "device_ms": t, "launches": n}
+            out[name] = {"bound_ms": b, "device_ms": t, "launches": n}
     return out
 
 
@@ -249,7 +246,7 @@ def traced_clip(window, clip: int, pairs: int, device: str, log) -> tuple:
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     steady = record_function("bench.steady")
-    launches = Launches()
+    launches = Launches(groups())
     calls = []
 
     def open_stretch(fn):
@@ -314,12 +311,13 @@ def summarize(events: list) -> tuple:
     for e in dev:
         by_name[e[1]] = by_name.get(e[1], 0.0) + e[3]
     device_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    # idle gaps on the card, each labelled by the innermost span of the
-    # main thread open when it began: one sweep over gaps and spans, both
-    # in time order, with the open spans on a stack (they nest)
+    # idle gaps on the card, each labelled by the innermost `gsl.*` span
+    # of the main thread open when it began (the innermost `bench.*` one
+    # outside them): one sweep over gaps and spans, both in time order,
+    # with the open spans on a stack (a thread's spans nest)
     spans = sorted(((e[2], e[2] + e[3], e[1]) for e in events
                     if e[0] == "user_annotation" and e[4] == main_tid
-                    and e[1].startswith("bench.")),
+                    and e[1].startswith(("gsl.", "bench."))),
                    key=lambda s: (s[0], -s[1]))
     gaps, prev = [], c0
     for s, e in merged:
@@ -331,11 +329,13 @@ def summarize(events: list) -> tuple:
     idle, stack, k = {}, [], 0
     for g0, g1 in gaps:
         while k < len(spans) and spans[k][0] <= g0:
+            while stack and stack[-1][1] <= spans[k][0]:
+                stack.pop()
             stack.append(spans[k])
             k += 1
         while stack and stack[-1][1] <= g0:
             stack.pop()
-        label = stack[-1][2] if stack else "(no span)"
+        label = _label(stack, g0)
         idle[label] = idle.get(label, 0.0) + (g1 - g0)
     idle_gaps = sorted(idle.items(), key=lambda kv: -kv[1])[:10]
     readings = {"busy_s": busy / 1e6, "window_s": (c1 - c0) / 1e6}
@@ -344,3 +344,13 @@ def summarize(events: list) -> tuple:
         "idle_gaps": [[n, d / 1e6] for n, d in idle_gaps],
     }
     return readings, breakdown
+
+
+def _label(stack: list, t: float) -> str:
+    """The innermost `gsl.*` span of the open (start, end, name) spans
+    `stack` at time t, else the innermost `bench.*` one."""
+    for prefix in ("gsl.", "bench."):
+        for _s, e, name in reversed(stack):
+            if e > t and name.startswith(prefix):
+                return name
+    return "(no span)"
